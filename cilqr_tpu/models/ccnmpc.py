@@ -3,7 +3,7 @@
 The reference repo ships only run instructions for this baseline
 (`CCNMPC/readme.md:1-36`; its implementation — a CasADi NMPC per the
 environment requirements at `/root/reference/README.md:9-14` — lived outside
-the snapshot).  This module provides the TPU-native equivalent so the
+the snapshot).  This module provides a JAX equivalent so the
 framework can run the full algorithm comparison of
 `batch_dataprocess.py:459-463` (CCNMPC / CILQR / CILQR_Base / Frenet)
 without external solvers.
@@ -88,7 +88,8 @@ def propagate_covariance(
     fx, _ = dynamics.jacobians(p, X[:-1, 2], X[:-1, 3], U[:, 0])
 
     def step(S, A):
-        S1 = A @ S @ A.T + W
+        hp = jax.lax.Precision.HIGHEST  # no TF32 on a GPU
+        S1 = jnp.matmul(jnp.matmul(A, S, precision=hp), A.T, precision=hp) + W
         return S1, S1
 
     _, Ss = jax.lax.scan(step, Sigma0, fx)

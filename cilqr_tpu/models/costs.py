@@ -4,7 +4,7 @@ Reference semantics: ``CILQR/src/ilqr/include/ilqr/Constraints.cpp``.
 
 Everything is evaluated for the whole horizon at once (shape (N, ...)) —
 replacing the reference's dead ThreadPool experiments (Constraints.cpp:229-493)
-with plain vectorization on the VPU.
+with plain vectorization.
 """
 
 from __future__ import annotations
@@ -67,7 +67,9 @@ def control_cost_derivs(p: SolverParams, X: jax.Array, U: jax.Array):
     _, v4, m4 = barrier(p.q1_yawrate, p.q2_yawrate, yr_lo - yr, -eN2)
 
     R = jnp.array([[p.w_acc, 0.0], [0.0, p.w_yawrate]], dtype=dtype)
-    l_u = v1 + v2 + v3 + v4 + 2.0 * (U @ R)
+    # HIGHEST: a float32 product may otherwise run in TF32 on a GPU
+    hp = jax.lax.Precision.HIGHEST
+    l_u = v1 + v2 + v3 + v4 + 2.0 * jnp.matmul(U, R, precision=hp)
     l_uu = m1 + m2 + m3 + m4 + 2.0 * jnp.broadcast_to(R, (N, 2, 2))
     return l_u, l_uu
 
@@ -93,7 +95,7 @@ def tracking_cost_derivs(p: SolverParams, plan: LocalPlan, X: jax.Array, cp=None
         axis=-1,
     )
     Q = jnp.diag(jnp.array([p.w_pos, p.w_pos, p.w_vel, 0.0], dtype=dtype))
-    l_x = 2.0 * (err @ Q)
+    l_x = 2.0 * jnp.matmul(err, Q, precision=jax.lax.Precision.HIGHEST)
     l_xx = jnp.broadcast_to(2.0 * Q, (N, 4, 4))
     return l_x, l_xx
 

@@ -1,4 +1,4 @@
-"""Kinematic bicycle dynamics — TPU-native (vectorized, scan-friendly).
+"""Kinematic bicycle dynamics — vectorized and scan-friendly.
 
 Reference semantics: ``CILQR/src/ilqr/include/ilqr/Model.cpp``.
 

@@ -10,14 +10,14 @@ including its three uncertainty-handling ablation modes:
   * ``propagation`` — consume the propagated uncertainty costmap exactly like
     the CILQR planner does (`Frenet/readme.md:12-15`: map_engine sigmas live).
 
-This is a ground-up TPU-native implementation of the standard optimal-frenet
+This is a ground-up JAX implementation of the standard optimal-frenet
 lattice method (Werling et al., ICRA 2010), shaped for XLA:
 
   * the candidate set is a STATIC (n_lat x n_T x n_v) lattice, evaluated for
     every candidate and every horizon step in one dense broadcast — no
     per-candidate Python loops, no dynamic pruning;
   * infeasible candidates are masked (+inf cost), the winner is selected by
-    argmin and fetched with a one-hot MXU contraction;
+    argmin and fetched with a one-hot contraction at HIGHEST precision;
   * the full planner is one jittable function, vmappable over scenario
     batches and shardable over meshes like the CILQR solver.
 
@@ -169,12 +169,7 @@ def _project(ref: _RefLine, pos_xy: jax.Array):
     """(s, d) of a global point on the densified reference line."""
     d2 = (ref.x - pos_xy[0]) ** 2 + (ref.y - pos_xy[1]) ** 2
     i = jnp.argmin(d2)
-    oh = jax.nn.one_hot(i, ref.s.shape[0], dtype=ref.s.dtype)
-    sx = oh @ ref.x
-    sy = oh @ ref.y
-    tx = oh @ ref.tx
-    ty = oh @ ref.ty
-    s0 = oh @ ref.s
+    sx, sy, tx, ty, s0 = (a[i] for a in (ref.x, ref.y, ref.tx, ref.ty, ref.s))
     ex, ey = pos_xy[0] - sx, pos_xy[1] - sy
     s0 = s0 + tx * ex + ty * ey           # tangential correction
     d0 = -ty * ex + tx * ey               # signed offset (left positive)

@@ -1,4 +1,4 @@
-"""NRB-RRT baseline — risk-bounded kinodynamic RRT, TPU-native.
+"""NRB-RRT baseline — risk-bounded kinodynamic RRT in JAX.
 
 The reference's batch comparison includes an "NRB-RRT" algorithm column
 (``CILQR/src/ilqr/src/batch_dataprocess.py:458``) pointing at the external
@@ -25,7 +25,7 @@ pays; every array here is fixed-size so the whole tree growth jits as one
 state* via ``jax.random.fold_in`` so the closed-loop ``plan_step`` interface
 (state, warm-start) needs no key plumbing and runs are reproducible.
 
-TPU-first design: the tree lives in fixed (max_nodes, ...) arrays; nearest-
+Static-shape design: the tree lives in fixed (max_nodes, ...) arrays; nearest-
 node search is a masked argmin; steering evaluates ALL control primitives in
 parallel (vmap) and picks the best admissible one; path extraction is a
 parent-pointer gather unrolled to the horizon depth.  No dynamic shapes, no

@@ -2,7 +2,7 @@
 
 Reference semantics: ``CILQR/src/ilqr/include/ilqr/Obstacle.cpp``.
 
-TPU-first layout: all obstacles live in one padded pytree and are evaluated
+Batched layout: all obstacles live in one padded pytree and are evaluated
 for every (obstacle, timestep) pair in a single fused broadcast — replacing
 the reference's per-obstacle object loop (Constraints.cpp:180-187).
 """

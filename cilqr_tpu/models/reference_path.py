@@ -3,8 +3,8 @@
 Reference semantics: ``CILQR/src/ilqr/include/ilqr/LocalPlanner.cpp`` and the
 densified closest-point lookup at ``Constraints.cpp:24-59``.
 
-TPU-first design notes
-----------------------
+Design notes
+------------
 * The global plan is a fixed-size padded array ``(P, 2)`` with a valid count;
   the reference used dynamic Eigen blocks (LocalPlanner.cpp:47-60).
 * The degree-5 polynomial is fitted in a *centered + scaled* basis
@@ -16,7 +16,7 @@ TPU-first design notes
   never the raw coefficients — are what enter the solver, so parity is
   preserved at the trajectory level (verified against the float64 oracle).
 * ``find_closest_point`` becomes a dense (horizon, n_samples) distance argmin
-  — one fused VPU pass instead of an O(N*200) scalar scan.
+  — one fused pass instead of an O(N*200) scalar scan.
 """
 
 from __future__ import annotations
@@ -43,8 +43,8 @@ class LocalPlan(NamedTuple):
     # local-frame sample table for the tournament argmin (see
     # find_closest_points): the query-frame transform of (sample_x,
     # sample_y) plus the per-sample squared norm.  Computed in
-    # _local_channels so the fused kernel (ops/lm_pallas) reproduces the
-    # exact same bits when it regenerates the table in VMEM.
+    # _local_channels, whose op order the GPU kernel (ops/lm_pallas)
+    # mirrors when it regenerates the table.
     sample_xl: jax.Array  # (n_samples,)
     sample_yl: jax.Array  # (n_samples,)
     sample_r: jax.Array   # (n_samples,) sample_xl^2 + sample_yl^2
@@ -53,9 +53,9 @@ class LocalPlan(NamedTuple):
     # with sxr_s = x0r + dr*s, syr_s = poly(sxr_s); (qx, qy, cph, sph) is
     # the query frame of _local_channels.  Global-frame fits use the
     # identity rotation (ox=oy=sph=0, cph=1) with the window start as the
-    # query origin.  Lets the fused kernel (ops/lm_pallas) regenerate the
-    # table in VMEM from these parameters instead of hauling the
-    # (B, n_samples, 3) field through HBM.
+    # query origin.  Lets the GPU kernel (ops/lm_pallas) regenerate the
+    # table from these parameters instead of reading the (B, n_samples, 3)
+    # field from device memory.
     samp_frame: jax.Array  # (8,)
 
 
@@ -96,18 +96,14 @@ def polyfit_scaled(
     # Normal equations on the scaled basis are fine (cond(V) ~ 1e1-1e2 for
     # t in [-1, 1]); the y offset is removed first so coefficient magnitudes
     # stay O(path curvature) rather than O(|y|~300 m).  The tiny (order+1)^2
-    # SPD solve is an unrolled Cholesky (_chol_solve) — XLA's batched LU on
-    # TPU costs milliseconds at B=4096, the unrolled VPU version is free.
+    # SPD solve is an unrolled Cholesky (_chol_solve): elementwise under
+    # vmap, with no batched LU.
     #
     # The Gram matrix of a Vandermonde is a HANKEL of power sums:
     # G[i, j] = sum_k w_k t_k^(i+j) — only 2*order+1 distinct entries.
-    # Computing those as explicit VPU reductions (repeated-multiply powers,
-    # no pow) replaces the batched (order+1, W) HIGHEST-precision matmuls,
-    # which at B=32k measured ~5 ms of the mega path's fixed per-solve
-    # cost: vmapped tiny matmuls pad each scenario's 6x20 operands onto
-    # full MXU tiles, and `t ** arange` lowers through the generic pow.
-    # (round-5 profile: scripts/profile_prepost.py — plan fit 5.0 ms, of
-    # which the polyfit was 5.1; the power-sum form is ~0.1 ms.)
+    # Computing those as explicit reductions (repeated-multiply powers, no
+    # pow) replaces batched (order+1, W) HIGHEST-precision matmuls of tiny
+    # operands, and `t ** arange` would lower through the generic pow.
     tp = [jnp.ones_like(t)]  # t^0 .. t^(2*order), exact repeated multiply
     for _ in range(2 * order):
         tp.append(tp[-1] * t)
@@ -140,8 +136,8 @@ def polyfit_scaled(
 def _chol_solve(G: jax.Array, b: jax.Array) -> jax.Array:
     """Solve SPD G x = b by fully-unrolled Cholesky (static small order).
 
-    Pure elementwise ops — batches under vmap as full VPU tiles with no
-    LAPACK-style loop-carried lowering.
+    Pure elementwise ops — batches under vmap with no LAPACK-style
+    loop-carried lowering.
     """
     m = G.shape[-1]
     L = [[None] * m for _ in range(m)]
@@ -182,9 +178,9 @@ def polyval_scaled(coeffs: jax.Array, x_mid: jax.Array, x_scale: jax.Array, x: j
 
 def polyval_scaled_inv(coeffs: jax.Array, x_mid: jax.Array, inv_scale: jax.Array, x: jax.Array) -> jax.Array:
     """Horner with a precomputed reciprocal scale — used for the densified
-    sample table so the fused kernel's per-step 3-candidate refine
+    sample table so the GPU kernel's per-step 3-candidate refine
     (ops/lm_pallas) multiplies instead of dividing; the kernel mirrors this
-    op order bit-for-bit."""
+    op order."""
     t = (x - x_mid) * inv_scale
     r = jnp.zeros_like(t)
     for c in coeffs[::-1]:
@@ -199,9 +195,9 @@ def _local_channels(sx, sy, qx, qy, cph, sph):
     transformed into a window-local frame keeps the f32 rounding of the
     expanded form ~1e-4 m^2 (vs ~0.04 m^2 in raw CARLA-scale global
     coordinates, where it would rival the adjacent-sample distance gap).
-    The expression order here is mirrored op-for-op by the fused kernel's
-    in-VMEM table regeneration (ops/lm_pallas) so both paths pick identical
-    tournament winners.
+    The expression order here is mirrored op-for-op by the GPU kernel's
+    table regeneration (ops/lm_pallas) so both paths pick the same
+    winners up to compiler contraction of multiply-adds.
     """
     dx0 = sx - qx
     dy0 = sy - qy
@@ -231,7 +227,7 @@ def get_local_plan(p: SolverParams, plan_xy: jax.Array, n_valid: jax.Array, ego_
     # window with a single one-hot row-select matmul.  Versus one-hotting
     # every window row over P (a (B, W, P) one-hot ~ 170 MB at B=4096,
     # P=512), the one-hot here is (B, P) — 20x smaller — and the fetch is
-    # one MXU-shaped (B, P) @ (P, 2W) contraction.
+    # one (B, P) @ (P, 2W) contraction.
     P, W = plan_xy.shape[0], p.num_of_local_wpts
     # exact end-of-plan shrink (LocalPlanner.cpp:51-58): the reference fits
     # only the remaining points when < W are left; with static shapes the
@@ -246,8 +242,9 @@ def get_local_plan(p: SolverParams, plan_xy: jax.Array, n_valid: jax.Array, ego_
         [plan_xy, jnp.broadcast_to(plan_xy[-1], (W, 2))], axis=0)  # (P+W, 2)
     win_idx = jnp.arange(P)[:, None] + jnp.arange(W)[None, :]
     windows = plan_ext[win_idx].reshape(P, 2 * W)  # shared across the batch
-    # HIGHEST precision is required for exactness: the MXU's default bf16
-    # operand truncation rounds ~100 m waypoint coordinates by up to 0.25 m.
+    # HIGHEST precision is required for exactness: a default-precision
+    # product (bf16 or TF32 operands) rounds ~100 m waypoint coordinates by
+    # up to 0.25 m.
     oh = jax.nn.one_hot(start, P, dtype=plan_xy.dtype)
     w = jnp.matmul(oh, windows, precision=jax.lax.Precision.HIGHEST)
     w = w.reshape(W, 2)
@@ -322,7 +319,7 @@ def find_closest_points(plan: LocalPlan, states: jax.Array) -> jax.Array:
     # (the |p_l|^2 term is constant per query): 2 multiply-adds per sample
     # instead of the 4-op (dx^2 + dy^2) evaluation.  Selection only — the
     # winner is re-checked exactly below.  Expression order mirrors the
-    # fused kernel's closest_point (ops/lm_pallas) bit-for-bit.
+    # GPU kernel's closest_point (ops/lm_pallas).
     qx, qy = plan.samp_frame[..., 6], plan.samp_frame[..., 7]
     cph, sph = plan.samp_frame[..., 4], plan.samp_frame[..., 5]
     dx0 = Q[:, 0] - qx
@@ -346,9 +343,9 @@ def find_closest_points(plan: LocalPlan, states: jax.Array) -> jax.Array:
     # refine around the wrong leg's local minimum; geometrically this needs
     # two legs of the degree-5 fit within ~1 cm of equidistance inside one
     # 40 m window, which closed-loop tests never exhibit.
-    # Fetch candidates with a one-hot matmul: XLA's per-row gather is ~5x
-    # slower than the MXU dot on TPU.  HIGHEST precision makes the dot
-    # exact — at the MXU's default bf16 operand truncation the fetched
+    # Fetch candidates with a one-hot matmul (whether a plain gather is
+    # faster on the GPU is ROADMAP S4).  HIGHEST precision makes the dot
+    # exact — at default precision (bf16 or TF32 operands) the fetched
     # coordinates round by up to ~0.25 m at CARLA-scale |x| ~ 100 m.
     cand = jnp.stack(
         [jnp.maximum(j - 1, 0), j, jnp.minimum(j + 1, S - 1)], axis=-1

@@ -1,4 +1,4 @@
-"""CILQR solver core — the TPU-native equivalent of class ``iLQR``.
+"""CILQR solver core — the JAX equivalent of class ``iLQR``.
 
 Reference semantics: ``CILQR/src/ilqr/include/ilqr/iLQR.cpp``.  Every
 documented quirk of the C++ driver is reproduced deliberately (and locked by
@@ -8,8 +8,8 @@ parity tests against the float64 NumPy oracle):
   from U (iLQR.cpp:102-106).
 * V_x/V_xx are seeded from the running cost at step N-1, which then enters
   the recursion again at j = N-1 (iLQR.cpp:108-113,133).
-* Q_uu is regularized by eigenvalue clamp + lambda shift (iLQR.cpp:155-175);
-  on TPU this is the closed-form 2x2 path in ``ops.eig2x2``.
+* Q_uu is regularized by eigenvalue clamp + lambda shift (iLQR.cpp:155-175)
+  through the closed-form 2x2 path in ``ops.eig2x2``.
 * V_x = Q_x - K^T Q_uu k and V_xx = Q_xx - K^T Q_uu K (iLQR.cpp:180-181) —
   the reference's (non-standard) value update.
 * The forward pass is a single rollout U + k + K (X_new - X) with *no* alpha
@@ -19,6 +19,10 @@ parity tests against the float64 NumPy oracle):
   (iLQR.cpp:217, Constraints.cpp:534-561).
 * lambda starts at 1, /10 on accept, x10 on reject, abort above 1e4; accept
   + |dJ| < tol terminates (iLQR.cpp:211-239).
+* A failed backward pass ends the solve with the current trajectory kept
+  (the eigensolver-failure abort, iLQR.cpp:159-162 and :213-215): here,
+  non-finite gains, which float32 reaches when barrier Hessians overflow
+  the value recursion.
 
 The whole solve is one jitted pure function of fixed-shape inputs, so
 batching across scenarios is a plain ``vmap`` and sharding a ``shard_map``
@@ -48,6 +52,7 @@ class SolveResult(NamedTuple):
     iterations: jax.Array  # () LM iterations executed
     J: jax.Array          # () final acceptance cost
     lamb: jax.Array       # () final LM damping
+    failed: jax.Array     # () stopped on a failed backward pass (non-finite gains)
 
 
 def initial_controls(p: SolverParams, dtype=jnp.float32) -> jax.Array:
@@ -79,16 +84,17 @@ def backward_from_derivs(p: SolverParams, d, X: jax.Array, U: jax.Array, lamb: j
     """Backward recursion from precomputed cost derivatives.
 
     Runs under HIGHEST matmul precision: the 4x4/2x4 contractions are tiny,
-    but under vmap they batch onto the MXU whose default bf16 operand
-    truncation costs ~3 significant digits in the gains.
+    but under vmap they batch into matrix products whose default precision
+    (TF32 on a GPU) costs ~3 significant digits in
+    the gains.
 
     ``p.backward_impl='pscan'`` swaps in the O(log N)-depth associative-scan
     pass (ops/riccati_pscan.py) for the B=1 latency case."""
-    if p.backward_impl == "pscan":
-        from cilqr_tpu.ops import riccati_pscan
-
-        return riccati_pscan.backward_pscan(p, d, X, U, lamb)
     with jax.default_matmul_precision("highest"):
+        if p.backward_impl == "pscan":
+            from cilqr_tpu.ops import riccati_pscan
+
+            return riccati_pscan.backward_pscan(p, d, X, U, lamb)
         return _backward_from_derivs(p, d, X, U, lamb)
 
 
@@ -156,31 +162,35 @@ def optimize(
 ):
     """Levenberg–Marquardt outer loop (iLQR.cpp:201-245).
 
-    Returns (X, U, iterations, J, lamb).  Implemented as a ``lax.while_loop``
-    whose carry masks finished lanes, so it early-exits when jitted alone and
-    stays correct (per-scenario convergence) under ``vmap``.
+    Returns (X, U, iterations, J, lamb, failed).  Implemented as a
+    ``lax.while_loop`` whose carry masks finished lanes, so it early-exits
+    when jitted alone and stays correct (per-scenario convergence) under
+    ``vmap``.  ``failed`` marks a solve that stopped on non-finite gains.
     """
     dtype = x0.dtype
     X0 = dynamics.rollout(p, x0, U_init)
     big = jnp.asarray(jnp.finfo(dtype).max, dtype)
 
     def cond(carry):
-        X, U, J_old, lamb, it, done = carry
+        X, U, J_old, lamb, it, done, failed = carry
         return jnp.logical_and(jnp.logical_not(done), it < p.max_iterations)
 
     def body(carry):
-        X, U, J_old, lamb, it, done = carry
+        X, U, J_old, lamb, it, done, failed = carry
         # fused: one closest-point pass feeds both the derivatives and the
         # acceptance cost J of the pre-update trajectory (iLQR.cpp:213,217)
         d, J_new = costs_mod.all_cost_derivs_and_J(p, plan, X, U, obstacles, unc_map)
         k, K = backward_from_derivs(p, d, X, U, lamb)
         X_new, U_new = forward_pass(p, X, U, k, K)
 
-        accept = J_new < J_old
+        # failed backward pass: stop, keep X/U/lambda (iLQR.cpp:159-162)
+        ok = jnp.all(jnp.isfinite(k)) & jnp.all(jnp.isfinite(K))
+        accept = (J_new < J_old) & ok
         X_n = jnp.where(accept, X_new, X)
         U_n = jnp.where(accept, U_new, U)
-        lamb_n = jnp.where(accept, lamb / p.lamb_factor, lamb * p.lamb_factor)
-        stop = jnp.where(
+        lamb_n = jnp.where(
+            ok, jnp.where(accept, lamb / p.lamb_factor, lamb * p.lamb_factor), lamb)
+        stop = ~ok | jnp.where(
             accept,
             jnp.abs(J_new - J_old) < p.tolerance,
             lamb_n > p.lamb_max,
@@ -191,7 +201,8 @@ def optimize(
         J_o = jnp.where(done, J_old, J_new)
         lamb_o = jnp.where(done, lamb, lamb_n)
         it_o = jnp.where(done, it, it + 1)
-        return (X_o, U_o, J_o, lamb_o, it_o, jnp.logical_or(done, stop))
+        failed_o = jnp.where(done, failed, ~ok)
+        return (X_o, U_o, J_o, lamb_o, it_o, jnp.logical_or(done, stop), failed_o)
 
     carry0 = (
         X0,
@@ -200,9 +211,10 @@ def optimize(
         jnp.asarray(p.lamb_init, dtype),
         jnp.asarray(0, jnp.int32),
         jnp.asarray(False),
+        jnp.asarray(False),
     )
-    X, U, J, lamb, it, _ = jax.lax.while_loop(cond, body, carry0)
-    return X, U, it, J, lamb
+    X, U, J, lamb, it, _, failed = jax.lax.while_loop(cond, body, carry0)
+    return X, U, it, J, lamb, failed
 
 
 def run_step(
@@ -224,8 +236,8 @@ def run_step(
         (iLQR.cpp:9,253).  Feed ``SolveResult.U`` back in next cycle.
     """
     plan = get_local_plan(p, plan_xy, plan_n, ego_state)
-    X, U, it, J, lamb = optimize(p, plan, ego_state, U_warm, obstacles, unc_map)
-    return SolveResult(X, U, plan.x_wpts, plan.y_fit, it, J, lamb)
+    X, U, it, J, lamb, failed = optimize(p, plan, ego_state, U_warm, obstacles, unc_map)
+    return SolveResult(X, U, plan.x_wpts, plan.y_fit, it, J, lamb, failed)
 
 
 @partial(jax.jit, static_argnums=0)

@@ -1,21 +1,17 @@
-"""Batch-level CILQR solver: the throughput fast path.
+"""Batch-level CILQR solver: one (B, ...) scenario batch per call.
 
-``solver.run_step`` under ``vmap`` reproduces the reference exactly but pays
-for the backward recursion as ~50 sequential batched micro-ops per LM
-iteration.  This module restructures the *same algorithm* at the batch
-level so the backward pass is one fused Pallas kernel call
-(``ops.riccati_pallas``) per iteration:
+``run_steps_batched`` solves every lane with the semantics of
+``solver.run_step`` (same quirks, same masked convergence).  It has two
+routes and picks one from the backend and the input, never from a flag:
 
-  LM while_loop (batch-level, per-lane masks)
-    ├─ batched cost derivs + J          (one fused XLA region, vmapped math)
-    ├─ backward: riccati_pallas kernel  (whole recursion in VMEM)
-    ├─ forward: batch-level lax.scan    (50 steps of (B, ...) fused ops)
-    └─ per-lane accept/reject + lambda updates (iLQR.cpp:211-239)
-
-Semantics match ``solver.run_step`` per lane (same quirks, same masked
-convergence) — locked by tests/test_solver_batched.py.  Batch must be a
-multiple of ``riccati_pallas.TILE`` (1024); smaller studies should use the
-reference vmap path.
+* the XLA route, ``batched_optimize`` — the LM ``while_loop`` at batch level
+  with per-lane masks around the vmapped ``costs.all_cost_derivs_and_J``,
+  ``solver.backward_from_derivs`` and ``solver.forward_pass``.  It runs on
+  every backend and carries every kind of world: shared, per-scenario
+  uncertainty maps, per-scenario obstacles;
+* the fused GPU kernel, ``ops.lm_pallas.fused_optimize`` — the whole LM loop
+  in one launch per block of lanes.  It takes float32 batches with shared
+  obstacles and a shared or per-scenario uncertainty map.
 """
 
 from __future__ import annotations
@@ -27,7 +23,6 @@ import jax.numpy as jnp
 
 from cilqr_tpu.models import costs as costs_mod, dynamics, solver
 from cilqr_tpu.models.reference_path import get_local_plan
-from cilqr_tpu.ops import riccati_pallas
 from cilqr_tpu.utils.params import SolverParams
 
 
@@ -38,54 +33,53 @@ def batched_optimize(
     U_init: jax.Array,
     obstacles=None,
     unc_map=None,
-    world_batched: bool = False,
 ):
-    """LM loop over a (B, ...) scenario batch with the fused backward kernel.
+    """LM loop (iLQR.cpp:201-245) over a (B, ...) scenario batch on XLA.
 
-    plans: vmapped LocalPlan pytree (leading axis B).
-    world_batched: obstacles/unc_map pytrees carry a leading B axis (one
-    world per scenario — the Monte-Carlo per-sampled-covariance setting).
-    The uncertainty sample then uses plain gathers instead of the one-hot
-    matmul (see uncertainty_cost's use_onehot note).
-    Returns (X (B,N+1,4), U (B,N,2), iters (B,), J (B,), lamb (B,))."""
+    plans: vmapped LocalPlan pytree (leading axis B).  ``obstacles`` /
+    ``unc_map`` are shared, or carry a leading B axis (one world per
+    scenario: ``obstacles.pos`` of rank 4, ``unc_map.values`` of rank 3).
+    Per-scenario maps are sampled with plain gathers instead of the one-hot
+    contraction (see ``uncertainty.uncertainty_cost``'s use_onehot note).
+    Returns (X (B,N+1,4), U (B,N,2), iters (B,), J (B,), lamb (B,),
+    failed (B,)); ``failed`` as in ``solver.optimize``."""
     B = x0s.shape[0]
     dtype = x0s.dtype
     X0 = jax.vmap(lambda e, u: dynamics.rollout(p, e, u))(x0s, U_init)
     big = jnp.full((B,), jnp.finfo(dtype).max, dtype)
 
-    if world_batched:
-        # per-world axes by inspection: a batched obstacle pytree has a
-        # leading scenario axis on pos (ndim 4); shared worlds broadcast
-        ob_ax = 0 if (obstacles is not None and obstacles.pos.ndim == 4) else None
-        um_ax = 0 if unc_map is not None else None
-        inner = jax.vmap(
-            lambda pl_, Xi, Ui, ob, um: costs_mod.all_cost_derivs_and_J(
-                p, pl_, Xi, Ui, ob, um, unc_onehot=False
-            ),
-            in_axes=(0, 0, 0, ob_ax, um_ax),
-        )
-        derivs_J = lambda pls, Xi, Ui: inner(pls, Xi, Ui, obstacles, unc_map)
-    else:
-        derivs_J = jax.vmap(
-            lambda pl_, Xi, Ui: costs_mod.all_cost_derivs_and_J(
-                p, pl_, Xi, Ui, obstacles, unc_map
-            )
-        )
+    ob_ax = 0 if obstacles is not None and obstacles.pos.ndim == 4 else None
+    um_ax = 0 if unc_map is not None and unc_map.values.ndim == 3 else None
+    inner = jax.vmap(
+        lambda pl_, Xi, Ui, ob, um: costs_mod.all_cost_derivs_and_J(
+            p, pl_, Xi, Ui, ob, um, unc_onehot=um_ax is None
+        ),
+        in_axes=(0, 0, 0, ob_ax, um_ax),
+    )
+    backward = jax.vmap(
+        lambda d, Xi, Ui, li: solver.backward_from_derivs(p, d, Xi, Ui, li))
+    forward = jax.vmap(
+        lambda Xi, Ui, ki, Ki: solver.forward_pass(p, Xi, Ui, ki, Ki))
 
     def cond(carry):
-        X, U, J_old, lamb, it, done = carry
+        X, U, J_old, lamb, it, done, failed = carry
         return jnp.any(jnp.logical_and(~done, it < p.max_iterations))
 
     def body(carry):
-        X, U, J_old, lamb, it, done = carry
-        d, J_new = derivs_J(plans, X, U)
-        X_new, U_new = riccati_pallas.backward_forward_batched(p, d, X, U, lamb)
+        X, U, J_old, lamb, it, done, failed = carry
+        d, J_new = inner(plans, X, U, obstacles, unc_map)
+        k, K = backward(d, X, U, lamb)
+        X_new, U_new = forward(X, U, k, K)
 
-        accept = J_new < J_old
+        # failed backward pass: stop, keep X/U/lambda (solver.optimize)
+        ok = (jnp.all(jnp.isfinite(k), axis=(1, 2))
+              & jnp.all(jnp.isfinite(K), axis=(1, 2, 3)))
+        accept = (J_new < J_old) & ok
         X_n = jnp.where(accept[:, None, None], X_new, X)
         U_n = jnp.where(accept[:, None, None], U_new, U)
-        lamb_n = jnp.where(accept, lamb / p.lamb_factor, lamb * p.lamb_factor)
-        stop = jnp.where(
+        lamb_n = jnp.where(
+            ok, jnp.where(accept, lamb / p.lamb_factor, lamb * p.lamb_factor), lamb)
+        stop = ~ok | jnp.where(
             accept, jnp.abs(J_new - J_old) < p.tolerance, lamb_n > p.lamb_max
         )
         X_o = jnp.where(done[:, None, None], X, X_n)
@@ -93,7 +87,8 @@ def batched_optimize(
         J_o = jnp.where(done, J_old, J_new)
         lamb_o = jnp.where(done, lamb, lamb_n)
         it_o = jnp.where(done, it, it + 1)
-        return (X_o, U_o, J_o, lamb_o, it_o, done | stop)
+        failed_o = jnp.where(done, failed, ~ok)
+        return (X_o, U_o, J_o, lamb_o, it_o, done | stop, failed_o)
 
     carry0 = (
         X0,
@@ -102,9 +97,18 @@ def batched_optimize(
         jnp.full((B,), p.lamb_init, dtype),
         jnp.zeros((B,), jnp.int32),
         jnp.zeros((B,), bool),
+        jnp.zeros((B,), bool),
     )
-    X, U, J, lamb, it, _ = jax.lax.while_loop(cond, body, carry0)
-    return X, U, it, J, lamb
+    X, U, J, lamb, it, _, failed = jax.lax.while_loop(cond, body, carry0)
+    return X, U, it, J, lamb, failed
+
+
+def kernel_route(x0s: jax.Array, obstacles=None) -> bool:
+    """True when ``run_steps_batched`` takes the fused GPU kernel: on a GPU
+    backend, for float32 batches whose obstacles (if any) are shared."""
+    if jax.default_backend() != "gpu" or x0s.dtype != jnp.float32:
+        return False
+    return obstacles is None or obstacles.pos.ndim == 3
 
 
 def run_steps_batched(
@@ -115,86 +119,28 @@ def run_steps_batched(
     U_warm: jax.Array,
     obstacles=None,
     unc_map=None,
-    impl: str = "mega",
-    world_batched: bool = False,
 ) -> solver.SolveResult:
-    """Batched ``run_step`` (iLQR.cpp:247-255) on the fused fast path.
+    """Batched ``run_step`` (iLQR.cpp:247-255) for any batch size B.
 
-    Any batch size: B is padded up to the next kernel-tile multiple
-    internally (padding lanes replay lane 0 and are sliced off).
-
-    impl: "mega" (default) runs the fully-fused iteration kernel
-    (``ops.lm_pallas`` — cost derivatives computed on-chip, ~4x the
-    two-phase throughput); "two_phase" keeps the XLA-derivatives +
-    Riccati-kernel pipeline.
-
-    world_batched=True: unc_map carries a leading B axis (one map per
-    scenario); obstacles must then be SHARED (or None) for impl="mega".
-    Per-scenario maps cannot live in the mega kernel's VMEM (a 152x104 map
-    per lane is ~60 MB/tile vs the ~16 MB budget); impl="mega" uses the
-    hybrid path — XLA samples each scenario's own map at the current
-    trajectory every LM iteration and feeds (e, gx, gy) planes to the
-    kernel — while impl="two_phase" keeps everything (including batched
-    obstacles) in the XLA derivative phase."""
-    B = egos.shape[0]
-    # the hybrid mega path keeps obstacles in-kernel (shared-world payload);
-    # per-scenario obstacle pytrees (leading B axis on pos) keep the old
-    # fully-batched two-phase route
-    obs_batched = (
-        world_batched and obstacles is not None and obstacles.pos.ndim == 4
-    )
-    if impl == "mega" and obs_batched:
-        impl = "two_phase"
-    pad = (-B) % riccati_pallas.TILE
-    if pad:
-        egos = jnp.concatenate(
-            [egos, jnp.broadcast_to(egos[:1], (pad, 4))], axis=0
-        )
-        U_warm = jnp.concatenate(
-            [U_warm, jnp.broadcast_to(U_warm[:1], (pad,) + U_warm.shape[1:])], axis=0
-        )
-        if world_batched:
-            padfn = lambda a: jnp.concatenate(
-                [a, jnp.broadcast_to(a[:1], (pad,) + a.shape[1:])], axis=0
-            )
-            if obs_batched:
-                obstacles = None if obstacles is None else jax.tree.map(padfn, obstacles)
-            unc_map = None if unc_map is None else jax.tree.map(padfn, unc_map)
+    ``obstacles`` / ``unc_map`` are shared or per-scenario (leading B axis),
+    as in ``batched_optimize``.  The route (XLA or the fused GPU kernel) is
+    chosen by ``kernel_route`` from the backend and the input."""
     plans = jax.vmap(lambda e: get_local_plan(p, plan_xy, plan_n, e))(egos)
-    if impl == "mega" and not world_batched:
+    if kernel_route(egos, obstacles):
         from cilqr_tpu.ops import lm_pallas
 
-        X, U, it, J, lamb = lm_pallas.fused_optimize(
+        X, U, it, J, lamb, failed = lm_pallas.fused_optimize(
             p, plans, egos, U_warm, obstacles, unc_map
         )
-    elif impl == "mega":
-        from cilqr_tpu.models import uncertainty as uncertainty_mod
-        from cilqr_tpu.ops import lm_pallas
-
-        # hybrid: shared obstacles in-kernel, per-scenario maps sampled by
-        # XLA each iteration (two-stage one-hot MXU contraction)
-        unc_sampler = (
-            None if unc_map is None
-            else (lambda Xb: jnp.stack(
-                uncertainty_mod.uncertainty_sample_batched(p, unc_map, Xb),
-                axis=-1,
-            ))
-        )
-        X, U, it, J, lamb = lm_pallas.fused_optimize(
-            p, plans, egos, U_warm, obstacles, None, unc_sampler=unc_sampler
-        )
     else:
-        X, U, it, J, lamb = batched_optimize(
-            p, plans, egos, U_warm, obstacles, unc_map, world_batched=world_batched
+        X, U, it, J, lamb, failed = batched_optimize(
+            p, plans, egos, U_warm, obstacles, unc_map
         )
-    res = solver.SolveResult(X, U, plans.x_wpts, plans.y_fit, it, J, lamb)
-    if pad:
-        res = jax.tree.map(lambda a: a[:B], res)
-    return res
+    return solver.SolveResult(X, U, plans.x_wpts, plans.y_fit, it, J, lamb, failed)
 
 
-@partial(jax.jit, static_argnums=(0, 7, 8))
+@partial(jax.jit, static_argnums=0)
 def run_steps_batched_jit(p, plan_xy, plan_n, egos, U_warm, obstacles=None,
-                          unc_map=None, impl="mega", world_batched=False):
+                          unc_map=None):
     return run_steps_batched(p, plan_xy, plan_n, egos, U_warm, obstacles,
-                             unc_map, impl, world_batched)
+                             unc_map)

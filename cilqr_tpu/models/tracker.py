@@ -40,8 +40,8 @@ def init(dtype=jnp.float32, x0=None) -> KFState:
 
 
 def predict(s: KFState) -> KFState:
-    # HIGHEST precision: batched 6x6 dots land on the MXU, whose default
-    # bf16 operand truncation degrades the covariance recursion
+    # HIGHEST precision: batched 6x6 dots at default precision (bf16 or
+    # TF32 operands) degrade the covariance recursion
     with jax.default_matmul_precision("highest"):
         F, _, Q, _ = _matrices(s.x.dtype)
         return KFState(F @ s.x, F @ s.P @ F.T + Q)

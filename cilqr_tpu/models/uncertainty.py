@@ -72,11 +72,9 @@ def uncertainty_sample(p: SolverParams, m: UncertaintyMap, Xs: jax.Array,
 
     e = q1*exp(q2*c) masked to 0 outside the map (c = occupancy/100);
     (gx, gy) is the global-frame gradient of c (NOT masked — every
-    consumer multiplies it by a factor of e).  Shared by
-    ``uncertainty_cost`` and the hybrid mega-solver path
-    (ops/lm_pallas.fused_optimize with an external uncertainty sampler),
-    and mirrored op-for-op by the in-kernel sampler
-    (lm_pallas._run_iteration's unc_sample)."""
+    consumer multiplies it by a factor of e).  Used by
+    ``uncertainty_cost`` and mirrored by the GPU solve kernel's sampler
+    (ops/lm_pallas)."""
     # global -> map frame
     d = Xs[:, :2] - m.origin_xy
     cy, sy = jnp.cos(m.origin_yaw), jnp.sin(m.origin_yaw)
@@ -99,48 +97,6 @@ def uncertainty_sample(p: SolverParams, m: UncertaintyMap, Xs: jax.Array,
     e = jnp.where(inside, e, 0.0)
     return e, gx, gy
 
-
-
-
-def uncertainty_sample_batched(p: SolverParams, m: UncertaintyMap,
-                               Xs: jax.Array):
-    """Batched-maps variant of ``uncertainty_sample``: one map per scenario.
-
-    Args:
-      m: UncertaintyMap pytree with batched leaves (values (B, H, W), ...).
-      Xs: (B, N, >=2) query states.
-    Returns (e (B, N), gx (B, N), gy (B, N)).
-
-    Same semantics per row; the corner fetch is the two-stage one-hot MXU
-    contraction of ``gridmap.sample_bilinear_with_grad_batched`` (per-row
-    gathers lower ~30x slower on TPU — this is the hybrid mega-solver's
-    per-iteration sampler, see solver_batched.run_steps_batched)."""
-    B = Xs.shape[0]
-    d = Xs[..., :2] - m.origin_xy[:, None, :]
-    cy = jnp.cos(m.origin_yaw).reshape(B, 1)
-    sy = jnp.sin(m.origin_yaw).reshape(B, 1)
-    local = jnp.stack(
-        [cy * d[..., 0] + sy * d[..., 1], -sy * d[..., 0] + cy * d[..., 1]],
-        axis=-1,
-    )
-
-    u, grad_local = gridmap.sample_bilinear_with_grad_batched(
-        m.values, m.geom, local
-    )
-    lo = m.geom.center - 0.5 * m.geom.length  # (B, 2)
-    hi = m.geom.center + 0.5 * m.geom.length
-    inside = jnp.all(
-        (local >= lo[:, None, :]) & (local <= hi[:, None, :]), axis=-1
-    )
-
-    c = u / 100.0
-    grad_c = grad_local / 100.0
-    gx = cy * grad_c[..., 0] - sy * grad_c[..., 1]
-    gy = sy * grad_c[..., 0] + cy * grad_c[..., 1]
-
-    e = p.q1_uncertainty * jnp.exp(p.q2_uncertainty * c)
-    e = jnp.where(inside, e, 0.0)
-    return e, gx, gy
 
 
 def uncertainty_cost(p: SolverParams, m: UncertaintyMap, X: jax.Array,

@@ -1,4 +1,4 @@
-"""Local uncertainty-costmap engine — TPU-native equivalent of the
+"""Local uncertainty-costmap engine — the JAX equivalent of the
 ``map_engine`` node (``CILQR/src/map_engine/src/local_costmap.cpp`` +
 ``arbitrary_transformation.cu`` / ``ARBIT.cuh``).
 
@@ -9,7 +9,7 @@ Pipeline per planning tick (odomCallback, local_costmap.cpp:172-310):
   4. uncertainty propagation              (thrust_propagateUncertainty)
   5. planner map assembly                 (:296-306)
 
-Design notes (TPU-first):
+Design notes:
 * The reference resizes the grid every tick from the corridor bbox; XLA needs
   static shapes, so the grid is a fixed (rows, cols) patch whose *center*
   follows the corridor bbox while the extent stays rows*res x cols*res.
@@ -18,11 +18,12 @@ Design notes (TPU-first):
   inside test ((T d)^2 / semiAxes^2 <= 1, EllipseIterator.cpp:84-90) is
   algebraically identical to  d^T cov^-1 d <= chi^2,  so the 2x2
   eigendecomposition of the CUDA path (arbitrary_transformation.cu:60-83)
-  is not needed at all — pure VPU math.
+  is not needed at all — pure elementwise math.
 * The hot accumulation loop (OpenMP x8 on host in the reference,
   arbitrary_transformation.cu:102-151) is a scan over window offsets with
-  shifted adds — and a Pallas halo-tiled kernel in
-  ``ops/uncertainty_pallas.py`` for the TPU fast path.
+  shifted adds on XLA, and a tiled Triton kernel on the GPU
+  (``ops/uncertainty_pallas.py``); ``propagate_uncertainty_batched`` picks
+  the route from the backend and the input.
 """
 
 from __future__ import annotations
@@ -147,7 +148,7 @@ def corridor_center_bounds(
     plan (each valid waypoint, at the path-tangent yaw) x a grid of lateral
     and yaw perturbations (initial-scatter + closed-loop tracking error),
     then pads with margins.  Feed the result to
-    ``uncertainty_pallas.make_band_plan_bounds`` so the full-stack batched
+    ``make_band_plan_bounds`` so the full-stack batched
     propagation's band radii cover every per-scenario vehicle-frame
     geometry the run can produce.  Must run OUTSIDE jit (concrete plan).
 
@@ -397,7 +398,7 @@ def propagate_uncertainty_reference(
     sigmas=None,
 ) -> jax.Array:
     """Pure-JAX (XLA) uncertainty propagation — the semantics oracle for the
-    Pallas kernel and the CPU/compat path.
+    GPU kernel and the XLA route.
 
     For every cell i:  u_i = sum_j f_ij p_j / sum_j f_ij  over cells j inside
     the 95% ellipse of cov_i AND inside the map, with f the correlated 2D
@@ -447,9 +448,8 @@ def propagate_uncertainty_reference(
 
         zx = dx / sx
         zy = dy / sy
-        # q = zx^2 - 2 rho zx zy + zy^2, factored exactly as the Pallas
-        # kernel's hoisted form (uncertainty_pallas._accumulate) so the two
-        # paths stay numerically locked
+        # q = zx^2 - 2 rho zx zy + zy^2, factored as the GPU kernel's form
+        # (uncertainty_pallas._kernel) so the two paths stay close
         q = (zx - two_rho * zy) * zx + zy * zy
         # inside-ellipse test: d^T cov^-1 d = q / (1 - rho^2) <= chi^2
         inside = q <= chi2 * one_m_rho2
@@ -465,6 +465,158 @@ def propagate_uncertainty_reference(
     return jnp.where(psd & (den > 0), jnp.clip(num / den, 0.0, 100.0), prior)
 
 
+class BandPlan(NamedTuple):
+    """Static row-band decomposition for batched propagation.
+
+    bands: ((row0, band_rows, radius), ...) contiguous from row 0;
+    sigma_hi: the (sigma_x, sigma_y, sigma_theta) upper bound the radii
+    cover — consumers cross-check their own sampling bound against it
+    (None when the plan is a plain full-map window);
+    x_range / y_range: the map-frame center interval the radii cover
+    (``make_band_plan`` returns degenerate (c, c) intervals for its fixed
+    center; None only for hand-built full-window plans, whose single
+    worst-case radius needs no center bookkeeping).  The caller must
+    guarantee every per-scenario center stays inside the intervals —
+    centers are traced at propagation time, so no runtime check is
+    possible (see ``corridor_center_bounds``).
+    disc_radii: per-band float disc radii (cells) for the exact disc cut
+    (offsets with di^2 + dj^2 > r^2 carry w = 0); None = full square.
+    """
+
+    bands: tuple
+    sigma_hi: tuple | None
+    x_range: tuple | None = None
+    y_range: tuple | None = None
+    disc_radii: tuple | None = None
+
+
+def check_band_plan(band_plan: BandPlan, rows: int) -> None:
+    """Reject a plan whose bands are not contiguous or do not cover ``rows``."""
+    covered = 0
+    for (r0, br, _) in band_plan.bands:
+        if r0 != covered:
+            raise ValueError(
+                f"band plan not contiguous at row {covered}: {band_plan.bands}")
+        covered += br
+    if covered != rows:
+        raise ValueError(
+            f"band plan covers {covered} rows but the prior has {rows} — "
+            "stale plan for a different map shape")
+
+
+def make_band_plan(cp: CostmapParams, rows: int, cols: int, center,
+                   sigma_hi, max_bands=None) -> BandPlan:
+    """Static row bands with per-band window radii for banded propagation.
+
+    The fixed window sizes its (2R+1)^2 accumulation for the WORST cell of
+    the map (``required_window_radius``'s corner bound), but the required
+    95%-ellipse radius grows with the per-cell lever arm |cell| — near-ego
+    rows need a fraction of the corner radius.  Splitting the rows into
+    contiguous bands whose radius is that band's own worst-row bound cuts
+    the accumulation work ~2-4x EXACTLY: a window that covers every cell's
+    95% ellipse yields the same result (outside-ellipse offsets contribute
+    w = 0).  Must be built OUTSIDE jit (concrete center).
+    """
+    cx, cy = float(center[0]), float(center[1])
+    return make_band_plan_bounds(
+        cp, rows, cols, (cx, cx), (cy, cy), sigma_hi, max_bands=max_bands
+    )
+
+
+def make_band_plan_bounds(cp: CostmapParams, rows: int, cols: int,
+                          x_range, y_range, sigma_hi,
+                          max_bands=None) -> BandPlan:
+    """``make_band_plan`` for an INTERVAL of map-frame centers.
+
+    The full-stack batched path gives every scenario its own vehicle-frame
+    geometry (the corridor-derived center moves with the route,
+    ``corridor_center_bounds``); band radii must cover the worst center the
+    batch can produce.  Per row band the lever arm is maximized over
+    center_x in ``x_range`` and center_y in ``y_range`` — still EXACT for
+    every scenario whose center stays inside the intervals.
+
+    ``max_bands`` defaults to 8-row bands, one row tile of the GPU kernel.
+    """
+    import numpy as _np
+
+    res = cp.resolution
+    x_lo, x_hi = float(x_range[0]), float(x_range[1])
+    y_lo, y_hi = float(y_range[0]), float(y_range[1])
+    if x_lo > x_hi or y_lo > y_hi:
+        raise ValueError(f"empty center range {x_range} x {y_range}")
+    # row i cell x = center_x + off_i; worst |x| is at an interval endpoint
+    off = 0.5 * rows * res - 0.5 * res - res * _np.arange(rows)
+    max_x = _np.maximum(_np.abs(x_lo + off), _np.abs(x_hi + off))
+    # |y| is linear in center_y too: worst at an endpoint, + half extent
+    max_y = max(abs(y_lo), abs(y_hi)) + 0.5 * cols * res - 0.5 * res
+    lever = _np.hypot(max_x, max_y)
+    s_x, s_y, s_t = sigma_hi
+    need = _np.ceil(
+        cp.chisquare_val
+        * _np.sqrt(s_x * s_x + s_y * s_y + s_t * s_t * lever * lever)
+        / res
+    ).astype(int)
+    need = _np.maximum(need, 1)
+    # exact disc radius: |d| <= chi sqrt(lambda_max) with
+    # lambda_max <= max(s_x, s_y)^2 + s_t^2 lever^2 (diag + rank-1 split)
+    s_m = max(s_x, s_y)
+    disc = cp.chisquare_val * _np.sqrt(s_m * s_m + s_t * s_t * lever * lever) / res
+
+    n_b = min(int(max_bands) if max_bands else max(1, rows // 8), rows)
+    bounds = _np.linspace(0, rows, n_b + 1).astype(int)
+    bands = []
+    radii = []
+    for i in range(n_b):
+        r0, r1 = int(bounds[i]), int(bounds[i + 1])
+        if r1 > r0:
+            bands.append((r0, r1 - r0, int(need[r0:r1].max())))
+            radii.append(float(disc[r0:r1].max()))
+    return BandPlan(
+        tuple(bands), (float(s_x), float(s_y), float(s_t)),
+        (x_lo, x_hi), (y_lo, y_hi), tuple(radii),
+    )
+
+
+def kernel_route(dtype) -> bool:
+    """True when propagation takes the GPU kernel: a GPU backend and a
+    float32 prior (float64 parity runs stay on XLA)."""
+    return jax.default_backend() == "gpu" and dtype == jnp.float32
+
+
+def propagate_uncertainty_batched(
+    cp: CostmapParams,
+    prior: jax.Array,
+    geom: gridmap.GridGeom,
+    ego_yaw: jax.Array,
+    sigmas=None,
+    band_plan: Optional[BandPlan] = None,
+) -> jax.Array:
+    """Batched propagation, (B, rows, cols): ``prior`` shared (rows, cols) or
+    per-scenario (B, rows, cols); any of (geom, ego_yaw, sigmas (B, 3))
+    may carry the scenario axis.
+
+    The GPU kernel (``ops.uncertainty_pallas``) walks the band plan's
+    per-band windows; the XLA route vmaps ``propagate_uncertainty_reference``
+    over the full ``cp.window_radius`` window.  Both are exact as long as
+    the plan covers every cell's 95% ellipse."""
+    if kernel_route(prior.dtype):
+        from cilqr_tpu.ops import uncertainty_pallas
+
+        return uncertainty_pallas.propagate_batched(
+            cp, prior, geom, ego_yaw, sigmas, band_plan)
+    pr_ax = 0 if prior.ndim == 3 else None
+    geom_ax = 0 if geom.center.ndim == 2 else None
+    yaw_ax = 0 if jnp.ndim(ego_yaw) == 1 else None
+    sig_ax = 0 if sigmas is not None else None
+
+    def one(pr, g, y, s):
+        sig = None if s is None else (s[0], s[1], s[2])
+        return propagate_uncertainty_reference(cp, pr, g, y, sigmas=sig)
+
+    return jax.vmap(one, in_axes=(pr_ax, geom_ax, yaw_ax, sig_ax))(
+        prior, geom, ego_yaw, sigmas)
+
+
 def _costmap_pre(
     cp: CostmapParams,
     global_map: jax.Array,
@@ -476,14 +628,11 @@ def _costmap_pre(
     obs_size: jax.Array,
     obs_yaw: jax.Array,
     obs_mask: jax.Array,
-    skip_prior: bool = False,
 ):
     """Everything before the uncertainty propagation: corridor geometry,
     corridor mask, obstacle rasterization, prior sampling + bbox override.
 
-    ``skip_prior=True`` leaves the prior layer out (vehicle_map = bbox
-    only) — the batched path then fills it with the Pallas window-gather
-    sampler (sample_pallas) outside the vmap."""
+    """
     rows, cols = cp.rows, cp.cols
     ego_xy = ego_state[:2]
     ego_yaw = ego_state[3]
@@ -506,8 +655,6 @@ def _costmap_pre(
     bbox = rasterize_obstacles(
         cp, geom, rows, cols, obs_xy, obs_size, obs_yaw, obs_mask, ego_xy, ego_yaw
     )
-    if skip_prior:
-        return bbox, bbox, corridor, geom
     prior = sample_prior(geom, rows, cols, global_map, global_geom, ego_xy, ego_yaw)
     # bbox overrides prior where > 90 (local_costmap.cpp:260-263)
     vehicle_map = jnp.where(bbox > 90.0, bbox, prior)
@@ -525,7 +672,6 @@ def build_local_costmap(
     obs_size: jax.Array,
     obs_yaw: jax.Array,
     obs_mask: jax.Array,
-    use_pallas: bool = False,
     tracked_box: Optional[jax.Array] = None,
     tracked_valid: Optional[jax.Array] = None,
     with_ellipse_layer: bool = False,
@@ -575,11 +721,12 @@ def build_local_costmap(
             ang,
         ).astype(vehicle_map.dtype)
 
-    if use_pallas:
-        from cilqr_tpu.ops import uncertainty_pallas
-
-        unc = uncertainty_pallas.propagate_uncertainty_tpu(
-            cp, vehicle_map, geom, ego_yaw, sigmas=sigmas)
+    if kernel_route(vehicle_map.dtype):
+        one = lambda a: jnp.asarray(a)[None]
+        unc = propagate_uncertainty_batched(
+            cp, vehicle_map, jax.tree.map(one, geom), one(ego_yaw),
+            None if sigmas is None else one(jnp.stack(list(sigmas))),
+        )[0]
     else:
         unc = propagate_uncertainty_reference(
             cp, vehicle_map, geom, ego_yaw, sigmas=sigmas)
@@ -599,9 +746,7 @@ def build_local_costmap_batched(
     obs_size: jax.Array,
     obs_yaw: jax.Array,
     obs_mask: jax.Array,
-    use_pallas: bool = True,
     band_plan=None,
-    global_res: Optional[float] = None,
     tracked_boxes: Optional[jax.Array] = None,
     tracked_valid: Optional[jax.Array] = None,
     sigmas: Optional[jax.Array] = None,
@@ -619,44 +764,21 @@ def build_local_costmap_batched(
     in the single-scenario tick (see ``build_local_costmap``).
 
     The pre-propagation stage (corridor geometry, rasterization, prior
-    sampling) is vmapped XLA; the uncertainty propagation runs the batched
-    Pallas kernel with PER-SCENARIO priors, frames, and yaws (grid over
-    scenarios).  ``band_plan`` (see uncertainty_pallas.make_band_plan,
-    built for the configured cp sigmas and a conservative vehicle-frame
-    center) cuts the propagation FLOPs 2-4x exactly.  Returns a
+    resample) is vmapped XLA; the propagation is
+    ``propagate_uncertainty_batched`` with PER-SCENARIO priors, frames and
+    yaws.  ``band_plan`` (``make_band_plan_bounds``, built for the
+    configured sigmas and every vehicle-frame center the route can
+    produce) sets the GPU kernel's per-band windows.  Returns a
     LocalCostmap whose leaves carry a leading B axis.
-
-    ``global_res``: the global map's resolution as a STATIC Python float.
-    When given (and the f32 map/ratio is eligible, sample_pallas.supports)
-    the prior resample runs the Pallas window-gather kernel instead of the
-    vmapped XLA gather — ~20x faster, the dominant cost of the full-stack
-    cycle.  Omit for f64 parity runs.
     """
-    use_sample_kernel = False
-    if use_pallas and global_res is not None and global_map.dtype == jnp.float32:
-        from cilqr_tpu.ops import sample_pallas
-
-        use_sample_kernel = sample_pallas.supports(
-            cp.rows, cp.cols, cp.resolution, float(global_res),
-            global_map.shape[0], global_map.shape[1],
-        )
-
     pre = jax.vmap(
         lambda e: _costmap_pre(
             cp, global_map, global_geom, waypoints, n_wpts, e,
             obs_xy, obs_size, obs_yaw, obs_mask,
-            skip_prior=use_sample_kernel,
         )
     )
     vehicle_map, bbox, corridor, geom = pre(ego_states)
     yaws = ego_states[:, 3]
-
-    if use_sample_kernel:
-        prior = sample_pallas.sample_prior_batched_tpu(
-            geom, cp.rows, cp.cols, cp.resolution, float(global_res),
-            global_map, global_geom, ego_states[:, :2], yaws,
-        )
-        vehicle_map = jnp.where(bbox > 90.0, bbox, prior.astype(bbox.dtype))
 
     semantic = None
     if tracked_boxes is not None:
@@ -665,46 +787,23 @@ def build_local_costmap_batched(
         )(geom, tracked_boxes, tracked_valid)
         vehicle_map = jnp.where(semantic > 90.0, semantic, vehicle_map)
 
-    if use_pallas:
-        from cilqr_tpu.ops import uncertainty_pallas
-
-        if band_plan is None:
-            band_plan = uncertainty_pallas.BandPlan(
-                ((0, cp.rows, cp.window_radius),), None
+    if band_plan is not None and band_plan.sigma_hi is not None and sigmas is None:
+        # a cached plan built for smaller sigmas would silently truncate 95%
+        # ellipses (same guard as monte_carlo.monte_carlo applies for its
+        # sampled-sigma plans).  With traced ``sigmas`` the values are
+        # unknowable at trace time — the caller owns the bound.
+        sh = band_plan.sigma_hi
+        if cp.sigma_x > sh[0] or cp.sigma_y > sh[1] or cp.sigma_theta > sh[2]:
+            raise ValueError(
+                f"band plan sized for sigma_hi={sh} but the costmap "
+                f"uses ({cp.sigma_x}, {cp.sigma_y}, {cp.sigma_theta})"
+                " — rebuild it with make_band_plan_bounds"
             )
-        elif band_plan.sigma_hi is not None and sigmas is None:
-            # a cached plan built for smaller sigmas would silently
-            # truncate 95% ellipses (same guard as monte_carlo.monte_carlo
-            # applies for its sampled-sigma plans).  With traced ``sigmas``
-            # the values are unknowable at trace time — the caller owns the
-            # bound, exactly like the Monte-Carlo sampled-sigma path.
-            sh = band_plan.sigma_hi
-            if (cp.sigma_x > sh[0] or cp.sigma_y > sh[1]
-                    or cp.sigma_theta > sh[2]):
-                raise ValueError(
-                    f"band plan sized for sigma_hi={sh} but the costmap "
-                    f"uses ({cp.sigma_x}, {cp.sigma_y}, {cp.sigma_theta})"
-                    " — rebuild it with make_band_plan_bounds"
-                )
-        sig_b = None
-        if sigmas is not None:
-            sig_b = jnp.broadcast_to(
-                jnp.asarray(sigmas), (ego_states.shape[0], 3))
-        unc = uncertainty_pallas.propagate_uncertainty_tpu_banded(
-            cp, vehicle_map, geom, yaws, sig_b, band_plan
-        )
-    else:
-        if sigmas is None:
-            unc = jax.vmap(
-                lambda vm, g, y: propagate_uncertainty_reference(cp, vm, g, y)
-            )(vehicle_map, geom, yaws)
-        else:
-            sig_b = jnp.broadcast_to(
-                jnp.asarray(sigmas), (ego_states.shape[0], 3))
-            unc = jax.vmap(
-                lambda vm, g, y, s: propagate_uncertainty_reference(
-                    cp, vm, g, y, sigmas=s)
-            )(vehicle_map, geom, yaws, sig_b)
+    sig_b = None
+    if sigmas is not None:
+        sig_b = jnp.broadcast_to(jnp.asarray(sigmas), (ego_states.shape[0], 3))
+    unc = propagate_uncertainty_batched(
+        cp, vehicle_map, geom, yaws, sig_b, band_plan)
 
     return LocalCostmap(
         vehicle_map, bbox, unc, corridor, geom, ego_states[:, :2], yaws,

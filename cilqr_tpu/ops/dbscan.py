@@ -1,4 +1,4 @@
-"""DBSCAN point clustering — a *working* TPU-native replacement.
+"""DBSCAN point clustering — a *working* JAX replacement.
 
 The reference ships a DBSCAN for lidar-obstacle clustering that does not
 compile and is never called (``map_engine/include/DBSCAN.cpp``: undefined

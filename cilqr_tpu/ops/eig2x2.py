@@ -2,8 +2,8 @@
 
 The reference regularizes Q_uu with a general Eigen::EigenSolver per backward
 step (iLQR.cpp:155-175): eigenvalues clamped at >= 0, shifted by lambda,
-inverted, and recomposed.  Q_uu is symmetric 2x2 by construction, so on TPU we
-use the analytic decomposition — pure VPU math, no data-dependent control
+inverted, and recomposed.  Q_uu is symmetric 2x2 by construction, so we use
+the analytic decomposition — pure elementwise math, no data-dependent control
 flow, batches over (scenario x timestep) for free.
 """
 
@@ -57,4 +57,5 @@ def regularized_inverse(M: jax.Array, lamb: jax.Array) -> jax.Array:
     """V diag(1 / (max(w, 0) + lamb)) V^T  (iLQR.cpp:164-175)."""
     w, V = eigh2x2(M)
     w_inv = 1.0 / (jnp.maximum(w, 0.0) + lamb[..., None])
-    return jnp.einsum("...ik,...k,...jk->...ij", V, w_inv, V)
+    return jnp.einsum("...ik,...k,...jk->...ij", V, w_inv, V,
+                      precision=jax.lax.Precision.HIGHEST)

@@ -1,4 +1,4 @@
-"""Multi-layer grid-map substrate — functional, HBM-resident, jit-friendly.
+"""Multi-layer grid-map substrate — functional, device-resident, jit-friendly.
 
 Replaces the load-bearing slice of the vendored ANYbotics grid_map library
 (``grid_map_core/include/grid_map_core/GridMap.hpp:76-234``,
@@ -75,51 +75,6 @@ def in_bounds(geom: GridGeom, pos: jax.Array) -> jax.Array:
 
 
 
-def sample_bilinear_with_grad_batched(data: jax.Array, geom: GridGeom,
-                                      pos: jax.Array):
-    """Per-scenario-map bilinear sample: one map per batch row.
-
-    Args:
-      data: (B, H, W) maps; geom: GridGeom with batched leaves (B, ...);
-      pos: (B, N, 2) map-frame query positions.
-    Returns (val (B, N), grad (B, N, 2)) — same semantics (clamping,
-    gradient convention, exact corner values) as
-    ``sample_bilinear_with_grad`` per row.
-
-    TPU note: neither per-row gathers (~40 ns/element lowering) nor a flat
-    (B*N, B*H*W) one-hot (would materialize gigabytes) scale here; the
-    corner fetch is two one-hot MXU contractions — rows
-    ``(B,N,H) @ (B,H,W) -> (B,N,W)`` then a column one-hot dot — which is
-    block-diagonal sampling at dense-batched-matmul speed.  HIGHEST
-    precision keeps the fetches exact (single nonzero per one-hot row).
-    """
-    B, H, W = data.shape
-    res = geom.resolution.reshape(B, 1)
-    first = geom.center + 0.5 * geom.length - 0.5 * res  # (B, 2)
-    ci = (first[:, None, :] - pos) / res[:, :, None]  # (B, N, 2)
-    fi = jnp.clip(ci[..., 0], 0.0, H - 1.0)
-    fj = jnp.clip(ci[..., 1], 0.0, W - 1.0)
-    i0 = jnp.clip(jnp.floor(fi).astype(jnp.int32), 0, H - 2)
-    j0 = jnp.clip(jnp.floor(fj).astype(jnp.int32), 0, W - 2)
-    ti = fi - i0
-    tj = fj - j0
-
-    hp = jax.lax.Precision.HIGHEST
-    dt = data.dtype
-    row0 = jax.nn.one_hot(i0, H, dtype=dt)      # (B, N, H)
-    row1 = jax.nn.one_hot(i0 + 1, H, dtype=dt)
-    R0 = jnp.einsum("bnh,bhw->bnw", row0, data, precision=hp)
-    R1 = jnp.einsum("bnh,bhw->bnw", row1, data, precision=hp)
-    col0 = jax.nn.one_hot(j0, W, dtype=dt)      # (B, N, W)
-    col1 = jax.nn.one_hot(j0 + 1, W, dtype=dt)
-    v00 = jnp.sum(R0 * col0, axis=-1)
-    v01 = jnp.sum(R0 * col1, axis=-1)
-    v10 = jnp.sum(R1 * col0, axis=-1)
-    v11 = jnp.sum(R1 * col1, axis=-1)
-
-    return _bilinear_tail(v00, v01, v10, v11, ti, tj, -1.0 / res)
-
-
 def sample_nearest(data: jax.Array, geom: GridGeom, pos: jax.Array) -> jax.Array:
     """atPosition-style nearest-cell lookup (GridMap.hpp:166), clamped at the
     border.  pos: (..., 2) -> values (...,)."""
@@ -130,12 +85,11 @@ def sample_nearest(data: jax.Array, geom: GridGeom, pos: jax.Array) -> jax.Array
 
 
 def _bilinear_tail(v00, v01, v10, v11, ti, tj, inv):
-    """Shared interpolation + gradient tail of the bilinear samplers.
+    """Interpolation + gradient tail of the bilinear sampler.
 
     ``inv`` = d index / d pos = -1/resolution on both axes (indices grow
-    against position); broadcastable against the corner values.  One
-    definition keeps the single-map, batched-map, and (by mirrored ops)
-    in-kernel samplers semantically locked together."""
+    against position); broadcastable against the corner values.  The GPU
+    solve kernel (ops/lm_pallas) mirrors these ops."""
     v0 = v00 * (1 - tj) + v01 * tj
     v1 = v10 * (1 - tj) + v11 * tj
     val = v0 * (1 - ti) + v1 * ti
@@ -153,11 +107,11 @@ def sample_bilinear_with_grad(data: jax.Array, geom: GridGeom, pos: jax.Array,
     Returns (value (...,), grad (..., 2)) with grad = d value / d pos.
     Border cells clamp (gradient follows the clamped interpolant).
 
-    TPU note: XLA lowers per-query gathers poorly (~8 ms for 200k queries on
-    v5e); the default fetches all four corners with a single one-hot matmul
-    against a 4-column shifted-map matrix — exact (one nonzero per row,
-    f32) and ~6x faster on the MXU.  ``use_onehot=False`` keeps the plain
-    gather (useful for very large maps where the (Q, cells) one-hot would
+    The default fetches all four corners with a single one-hot matmul
+    against a 4-column shifted-map matrix — exact (one nonzero per row, f32
+    at HIGHEST precision); whether a plain gather is faster on the GPU is
+    ROADMAP S4.  ``use_onehot=False`` keeps the plain gather (per-scenario
+    maps under vmap, and very large maps where the (Q, cells) one-hot would
     dominate).
     """
     H, W = data.shape
@@ -179,8 +133,9 @@ def sample_bilinear_with_grad(data: jax.Array, geom: GridGeom, pos: jax.Array,
         idx = i0 * W + j0
         shape = idx.shape
         oh = jax.nn.one_hot(idx.reshape(-1), H * W, dtype=data.dtype)
-        # HIGHEST precision: the MXU default truncates the fetched cell
-        # values to bf16 (up to 0.25 occupancy error at the [0, 100] scale)
+        # HIGHEST precision: a default-precision product truncates the
+        # fetched cell values (up to 0.25 occupancy error at the [0, 100]
+        # scale in bf16)
         corners = jnp.matmul(
             oh, M4, precision=jax.lax.Precision.HIGHEST
         ).reshape(shape + (4,))
@@ -199,7 +154,7 @@ def rasterize_polygon(geom: GridGeom, rows: int, cols: int, vertices: jax.Array)
     """(rows, cols) float mask of cells whose centers lie inside the convex
     polygon ``vertices`` (K, 2) given in CCW or CW order.
 
-    TPU-native replacement of grid_map's ``PolygonIterator``
+    Replacement of grid_map's ``PolygonIterator``
     (PolygonIterator.cpp + Polygon::isInside): a vectorized all-same-side
     half-plane test instead of a per-cell ray cast.
     """

@@ -1,50 +1,39 @@
-"""Fully-fused CILQR LM-iteration kernel — cost derivatives computed on-chip.
+"""Fused CILQR solve for the GPU: the whole LM loop in one Triton launch.
 
-The two-phase fast path (``solver_batched`` + ``riccati_pallas``) leaves the
-cost-derivative evaluation to XLA; at B=4096, N=50 that region measures
-~1.1 ms/iteration on v5e — 94% of the loop body — dominated by the
-(B, N, 200) closest-point distance field's HBM traffic, the obstacle-barrier
-broadcast, and the uncertainty-map one-hot matmul.  This kernel fuses the
-*entire* iteration into one Pallas program per 1024-scenario tile:
+On XLA's route (``solver_batched.batched_optimize``) every LM iteration is a
+``while_loop`` step wrapping two N-step ``lax.scan``s, and on a GPU each scan
+step becomes its own small kernels, with the loop predicate read back every
+iteration.  This kernel runs the entire solve (iLQR.cpp:201-245) for one
+power-of-two block of scenario lanes per program:
 
-  backward scan (j = N-1 … 0), derivatives built in registers per step:
-    * closest point: 200-sample tournament argmin over the per-scenario
-      densified plan table (Constraints.cpp:24-59), VMEM-resident — in the
-      expanded local-frame form (2 multiply-adds/sample) with an exact
-      3-candidate global refine (see reference_path.find_closest_points);
-    * tracking + control barrier derivatives (Constraints.cpp:86-175),
-      with the state-dependent yaw-rate bounds;
-    * obstacle ellipse barriers (Obstacle.cpp:39-112) from per-(obstacle,
-      step) quadratic forms precomputed into SMEM — the pose-dependent
-      2x2 P-matrix is rotated into the global frame once per solve;
-    * uncertainty-map barrier (reconstructed Uncertainty.h, see
-      models/uncertainty.py): bilinear sample of the VMEM-resident costmap
-      via a per-128-block lane gather over four corner-shifted copies;
-    * the acceptance cost J (tracking+control quadratics only,
-      Constraints.cpp:534-561) accumulated alongside;
-    * the Riccati step with the eigen-clamp regularized 2x2 inverse
-      (iLQR.cpp:133-191) — same unrolled math as ``riccati_pallas``;
-  then the closed-loop forward rollout (iLQR.cpp:68-86) on the k/K scratch.
+  LM while_loop (per-block early exit once every lane has stopped)
+    backward scan j = N-1 .. 0, derivatives built in registers per step:
+      * closest point: first-minimum scan over the densified plan samples
+        (Constraints.cpp:24-59), each sample regenerated from the lane's fit
+        parameters in the expanded local-frame form of
+        ``reference_path.find_closest_points``, then its exact
+        {j-1, j, j+1} global refine;
+      * tracking + control barriers (Constraints.cpp:86-175) with the
+        state-dependent yaw-rate bounds;
+      * obstacle ellipse barriers (Obstacle.cpp:39-112) from per-(obstacle,
+        step) quadratic forms, read as broadcast scalars (shared obstacles);
+      * the uncertainty-map barrier (models/uncertainty.py): each lane
+        gathers the four bilinear corners from its own map (shared or
+        per-scenario) in device memory;
+      * the acceptance cost J (Constraints.cpp:534-561);
+      * the Riccati step with the eigen-clamp regularized 2x2 inverse
+        (iLQR.cpp:133-191);
+    closed-loop forward rollout (iLQR.cpp:68-86) from the k/K gains;
+    per-lane accept/reject and lambda update (iLQR.cpp:211-239).
 
-By default the LM accept/reject loop ALSO runs inside the kernel
-(``_opt_kernel`` — one invocation per tile, zero per-iteration HBM traffic,
-per-tile early exit); ``fused_optimize(inkernel_loop=False)`` keeps the
-one-kernel-call-per-iteration form with XLA bookkeeping (per-iteration HBM
-traffic is X/U in+out, ~5 MB at B=4096) as a parity cross-check.
+Every state component is a ``(BLOCK,)`` vector: lanes are independent, so a
+block needs no communication.  The Triton route has no scratch memory, so
+the gains and the proposed trajectory live in extra global-memory outputs
+that only the owning block touches.
 
-Numerics note: J is accumulated sequentially over the horizon inside the
-kernel while the two-phase path reduces it with XLA's tree order, so J can
-differ by O(1e-7·J) — enough to flip an LM accept decision on an exact tie.
-Trajectory-level parity (the BASELINE 1e-3 bar) is unaffected; per-lane
-iteration counts may differ by ±1 in rare lanes vs the vmap path.
-
-World payloads: obstacles and the VMEM-resident uncertainty map are
-shared across the batch.  PER-SCENARIO uncertainty maps (which cannot fit
-VMEM per lane) use the HYBRID mode — ``fused_optimize(unc_sampler=...)``
-samples each scenario's own map by XLA every LM iteration and feeds
-(e, gx, gy) planes to the kernel; see solver_batched.run_steps_batched
-(world_batched=True).  Per-scenario OBSTACLES fall back to the two-phase
-path.
+Numerics: J is summed sequentially over the horizon here and by XLA's tree
+order on the XLA route, so J can differ in the last bits and flip an accept
+decision on an exact tie; trajectories agree to float32 rounding.
 """
 
 from __future__ import annotations
@@ -56,37 +45,21 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
 from cilqr_tpu.models import dynamics
-from cilqr_tpu.ops import riccati_pallas
-from cilqr_tpu.ops.riccati_pallas import TILE, _TL, _TS, _from_tiles, _to_tiles
 from cilqr_tpu.utils.params import SolverParams
 
-LANE = _TL
+#: per-lane map-frame scalars: origin_x, origin_y, cos_yaw, sin_yaw,
+#: first_x, first_y, resolution, lo_x, hi_x, lo_y, hi_y, then the map's
+#: H - 1, W - 1, W and the lane stride of the flat values (H*W for
+#: per-scenario maps, 0 for a shared one) — runtime data, so every map
+#: shape and world kind runs the same compiled kernel
+N_FRAME = 15
 
-
-class WorldPrep(NamedTuple):
-    """Once-per-solve kernel payload for the shared world (obstacles + map).
-
-    obs:  (M*6, N) f32 — per (obstacle m, step j) rows [g11, g12, g22, px,
-          py, mask]: the global-frame safety-ellipse quadratic form
-          G = R(th)^T diag(a^-2, b^-2) R(th) (Obstacle.cpp:44-63), center,
-          and padding mask.
-    m4:   (4*K, 128) f32 — corner-shifted flattened uncertainty map
-          [flat, roll -1, roll -W, roll -(W+1)] padded to K lane blocks.
-    scl:  (1, 16) f32 — map-frame scalars [origin_x, origin_y, cos_yaw,
-          sin_yaw, first_x, first_y, 1/res, lo_x, hi_x, lo_y, hi_y, 0...].
-    hw:   static (rows, cols) of the map.
-    has_obs / has_unc: static switches compiled into the kernel.
-    """
-
-    obs: jax.Array
-    m4: jax.Array
-    scl: jax.Array
-    hw: tuple
-    has_obs: bool
-    has_unc: bool
+#: lanes per program (two warps, one lane per thread): a batch pads to a
+#: multiple of it
+BLOCK = 64
 
 
 def prep_obstacles(p: SolverParams, obs, dtype=jnp.float32) -> jax.Array:
@@ -94,10 +67,13 @@ def prep_obstacles(p: SolverParams, obs, dtype=jnp.float32) -> jax.Array:
 
     Folds the rotation of Obstacle.cpp:55-63 into a symmetric 2x2 G so the
     kernel's per-step work is 2 quadratic forms per obstacle disc.
+    Returns (M*6, N): rows [g11, g12, g22, px, py, mask] per obstacle.
+    Without obstacles: ``p.max_obstacles`` all-zero rows (G = 0 and mask 0
+    add exact zeros).
     """
     N = p.horizon
     if obs is None:
-        return jnp.zeros((6, N), dtype)
+        return jnp.zeros((p.max_obstacles * 6, N), dtype)
     dims = obs.dims[:, :N].astype(dtype)  # (M, N, 2)
     pos = obs.pos[:, :N].astype(dtype)    # (M, N, 4)
     M = dims.shape[0]
@@ -115,64 +91,51 @@ def prep_obstacles(p: SolverParams, obs, dtype=jnp.float32) -> jax.Array:
     return payload.reshape(M * 6, N)
 
 
-def prep_unc_map(m, dtype=jnp.float32):
-    """Corner-shifted flat map + frame scalars for the in-kernel sampler.
+def prep_unc_map(m, B: int, dtype=jnp.float32):
+    """Flat map values + per-lane frame scalars for the in-kernel sampler.
 
-    Mirrors ``gridmap.sample_bilinear_with_grad``'s one-hot-matmul corner
-    trick (ops/gridmap.py:108-120): i0 <= H-2 and j0 <= W-2 so the shifted
-    copies never wrap.
-    """
+    ``m`` is shared (values (H, W)) or per-scenario (values (B, H, W)).
+    Returns (flat values (B*H*W,) or (H*W,), frame (N_FRAME, B)).  Without a
+    map: a 2x2 zero map whose bounds are empty (lo > hi), so the barrier is
+    an exact zero."""
     if m is None:
-        return (
-            jnp.zeros((4, LANE), dtype),
-            # lo > hi => `inside` is identically false
-            jnp.zeros((1, 16), dtype).at[0, 7].set(1.0).at[0, 8].set(-1.0),
-            (2, 2),
-        )
-    H, W = m.values.shape
-    flat = m.values.astype(dtype).reshape(-1)
-    m4 = jnp.stack(
-        [flat, jnp.roll(flat, -1), jnp.roll(flat, -W), jnp.roll(flat, -W - 1)]
-    )  # (4, H*W)
-    K = -(-(H * W) // LANE)
-    m4 = jnp.pad(m4, ((0, 0), (0, K * LANE - H * W))).reshape(4 * K, LANE)
+        frame = jnp.zeros((N_FRAME, B), dtype)
+        frame = frame.at[6].set(1.0)                    # resolution
+        frame = frame.at[7].set(1.0).at[8].set(-1.0)   # lo_x > hi_x
+        frame = frame.at[11:14].set(jnp.asarray([1.0, 1.0, 2.0], dtype)[:, None])
+        return jnp.zeros((4,), dtype), frame
+    batched = m.values.ndim == 3
+    H, W = m.values.shape[-2:]
+    if batched and B * H * W >= 2**31:
+        raise ValueError(f"{B} maps of {H}x{W} overflow int32 gather indices")
     g = m.geom
-    first = g.center + 0.5 * g.length - 0.5 * g.resolution
+    res = jnp.broadcast_to(g.resolution, g.center.shape[:-1])
+    first = g.center + 0.5 * g.length - 0.5 * res[..., None]
     lo = g.center - 0.5 * g.length
     hi = g.center + 0.5 * g.length
-    cy, sy = jnp.cos(m.origin_yaw), jnp.sin(m.origin_yaw)
-    scl = jnp.stack(
+    frame = jnp.stack([
+        m.origin_xy[..., 0], m.origin_xy[..., 1],
+        jnp.cos(m.origin_yaw), jnp.sin(m.origin_yaw),
+        first[..., 0], first[..., 1], res,
+        lo[..., 0], hi[..., 0], lo[..., 1], hi[..., 1],
+    ]).astype(dtype).reshape(11, -1)
+    dims = jnp.asarray([H - 1, W - 1, W, H * W if batched else 0], dtype)
+    frame = jnp.concatenate(
+        [jnp.broadcast_to(frame, (11, B)), jnp.broadcast_to(dims[:, None], (4, B))])
+    return m.values.astype(dtype).reshape(-1), frame
+
+
+def _fit_payload(plans) -> jax.Array:
+    """(poly_order+11, B) payload: coeffs, x_mid, x_scale, samp_frame."""
+    return jnp.concatenate(
         [
-            m.origin_xy[0], m.origin_xy[1], cy, sy,
-            first[0], first[1], 1.0 / g.resolution,
-            lo[0], hi[0], lo[1], hi[1],
-            jnp.zeros(()), jnp.zeros(()), jnp.zeros(()), jnp.zeros(()), jnp.zeros(()),
-        ]
-    ).astype(dtype).reshape(1, 16)
-    return m4, scl, (H, W)
-
-
-def prep_world(p: SolverParams, obstacles, unc_map, dtype=jnp.float32) -> WorldPrep:
-    obs = prep_obstacles(p, obstacles, dtype)
-    m4, scl, hw = prep_unc_map(unc_map, dtype)
-    return WorldPrep(obs, m4, scl, hw, obstacles is not None, unc_map is not None)
-
-
-def _spec(steps, c):
-    """Per-tile (1, steps, c, 8, 128) VMEM block, indexed by grid g."""
-    return pl.BlockSpec(
-        (1, steps, c, _TS, _TL), lambda g: (g, 0, 0, 0, 0), memory_space=pltpu.VMEM
-    )
-
-
-_PLANE_SPEC = pl.BlockSpec(
-    (1, 1, _TS, _TL), lambda g: (g, 0, 0, 0), memory_space=pltpu.VMEM
-)
-
-
-def _shared(arr, space):
-    """Whole-array block replicated to every grid step (shared world)."""
-    return pl.BlockSpec(arr.shape, lambda g: (0,) * arr.ndim, memory_space=space)
+            plans.coeffs,
+            plans.x_mid[:, None],
+            plans.x_scale[:, None],
+            plans.samp_frame,
+        ],
+        axis=-1,
+    ).astype(jnp.float32).T
 
 
 def _padd(a, b):
@@ -184,152 +147,10 @@ def _padd(a, b):
     return a + b
 
 
-class _FitP(NamedTuple):
-    """Per-lane fit-parameter planes read from the fit payload ref.
-
-    cs: list of poly_order+1 coefficient planes; the rest mirror
-    LocalPlan.samp_frame (reference_path.py): generator frame
-    (x0r, dr, ox, oy, cph, sph) + query frame origin (qx, qy).
-    """
-
-    cs: list
-    x_mid: jax.Array
-    inv_xscale: jax.Array  # 1 / x_scale, one divide per solve
-    x0r: jax.Array
-    dr: jax.Array
-    ox: jax.Array
-    oy: jax.Array
-    cph: jax.Array
-    sph: jax.Array
-    qx: jax.Array
-    qy: jax.Array
-
-
-def _read_fitp(p: SolverParams, fit_ref) -> _FitP:
-    ncoef = p.poly_order + 1
-    v = lambda i: fit_ref[0, ncoef + i, 0]
-    return _FitP(
-        [fit_ref[0, i, 0] for i in range(ncoef)],
-        v(0), 1.0 / v(1), v(2), v(3), v(4), v(5), v(6), v(7), v(8), v(9),
-    )
-
-
-def _fit_payload(plans) -> jax.Array:
-    """(B, poly_order+11) f32 payload: coeffs + basis + samp_frame.
-
-    The kernel regenerates the densified sample table in VMEM from this,
-    so the (B, S, 3) sample field never touches HBM."""
-    return jnp.concatenate(
-        [
-            plans.coeffs,
-            plans.x_mid[:, None],
-            plans.x_scale[:, None],
-            plans.samp_frame,
-        ],
-        axis=-1,
-    ).astype(jnp.float32)
-
-
-def _gen_global_sample(fp: _FitP, s):
-    """Global-frame sample coords at (possibly dynamic) index plane/const s.
-
-    Op-for-op the math of reference_path.get_local_plan's table tail (incl.
-    polyval_scaled's Horner order and the rotate-back), so the result is
-    bit-identical to the vmap path's (sample_x, sample_y) entries."""
-    sxr = fp.x0r + fp.dr * s
-    t = (sxr - fp.x_mid) * fp.inv_xscale
-    r = jnp.zeros((_TS, _TL), jnp.float32)
-    for c in reversed(fp.cs):
-        r = r * t + c
-    sxg = fp.ox + fp.cph * sxr - fp.sph * r
-    syg = fp.oy + fp.sph * sxr + fp.cph * r
-    return sxg, syg
-
-
-def _gen_sample_table(S: int, fp: _FitP, sxy_ref):
-    """Regenerate the 3-channel local sample table (Constraints.cpp:28-42 +
-    reference_path._local_channels) in VMEM: [sxl, syl, r]."""
-    for s in range(S):
-        sxg, syg = _gen_global_sample(fp, float(s))
-        dx0 = sxg - fp.qx
-        dy0 = syg - fp.qy
-        sxl = fp.cph * dx0 + fp.sph * dy0
-        syl = fp.cph * dy0 - fp.sph * dx0
-        sxy_ref[0, s, 0] = sxl
-        sxy_ref[0, s, 1] = syl
-        sxy_ref[0, s, 2] = sxl * sxl + syl * syl
-
-
-def _make_closest_point(S: int, fp: _FitP, sxy_ref):
-    """closest_point(x0, x1) -> (cx, cy): tournament argmin over the
-    densified sample table (Constraints.cpp:28-56) in the expanded
-    local-frame form (2 multiply-adds per sample, (distance, index) carry),
-    then an exact global-frame {j-1, j, j+1} refine — see
-    reference_path.find_closest_points, mirrored op-for-op."""
-
-    def closest_point(x0, x1):
-        dx0 = x0 - fp.qx
-        dy0 = x1 - fp.qy
-        xl = fp.cph * dx0 + fp.sph * dy0
-        yl = fp.cph * dy0 - fp.sph * dx0
-        n0 = -2.0 * xl
-        n1 = -2.0 * yl
-
-        def cand(s):
-            d = (
-                sxy_ref[0, s, 2] + n0 * sxy_ref[0, s, 0]
-            ) + n1 * sxy_ref[0, s, 1]
-            return (d, float(s))
-
-        def merge(a, b):  # a is the earlier candidate; strict < keeps it
-            m = b[0] < a[0]
-            return (jnp.where(m, b[0], a[0]), jnp.where(m, b[1], a[1]))
-
-        best = None
-        CH = 8  # chunked tree: bounded live registers, log depth per chunk
-        for s0 in range(0, S, CH):
-            group = [cand(s) for s in range(s0, min(s0 + CH, S))]
-            while len(group) > 1:
-                group = [
-                    merge(group[i], group[i + 1]) if i + 1 < len(group) else group[i]
-                    for i in range(0, len(group), 2)
-                ]
-            best = group[0] if best is None else merge(best, group[0])
-        j = best[1]
-
-        def exact(s):
-            sxg, syg = _gen_global_sample(fp, s)
-            dxg = x0 - sxg
-            dyg = x1 - syg
-            return (dxg * dxg + dyg * dyg, sxg, syg)
-
-        def merge3(a, b):
-            m = b[0] < a[0]
-            return (
-                jnp.where(m, b[0], a[0]),
-                jnp.where(m, b[1], a[1]),
-                jnp.where(m, b[2], a[2]),
-            )
-
-        win = exact(jnp.maximum(j - 1.0, 0.0))
-        win = merge3(win, exact(j))
-        win = merge3(win, exact(jnp.minimum(j + 1.0, float(S - 1))))
-        return win[1], win[2]
-
-    return closest_point
-
-
-def _run_iteration(p: SolverParams, S: int, M: int, K: int, H: int, W: int,
-                   has_obs: bool, has_unc: bool, max_unroll: int,
-                   closest_point, obs_ref, m4_ref, scl_ref,
-                   X_ref, U_ref, lamb,
-                   Xn_ref, Un_ref, k_ref, K_ref, uext_ref=None):
-    """One LM iteration on refs: derivatives + backward Riccati (k/K into
-    scratch) + closed-loop forward rollout into (Xn_ref, Un_ref).  Returns
-    the acceptance-cost plane J of the *input* trajectory (iLQR.cpp:217).
-
-    Shared by the one-iteration kernel (``_iter_kernel``) and the full
-    in-kernel LM loop (``_opt_kernel``)."""
+def _opt_kernel(p: SolverParams, S: int, M: int,
+                fit_ref, X0_ref, U0_ref, obs_ref, frame_ref, umap_ref,
+                X_ref, U_ref, J_ref, lamb_ref, it_ref, fail_ref,
+                Xp_ref, Up_ref, k_ref, K_ref):
     f32 = jnp.float32
     N = p.horizon
     dt = float(p.timestep)
@@ -340,72 +161,115 @@ def _run_iteration(p: SolverParams, S: int, M: int, K: int, H: int, W: int,
     q1y, q2y = float(p.q1_yawrate), float(p.q2_yawrate)
     tan_hi = math.tan(p.steer_angle_max) / p.wheelbase
     tan_lo = math.tan(p.steer_angle_min) / p.wheelbase
-    amax, amin = float(p.acc_max), float(p.acc_min)
     wobs = float(p.w_obstacle)
     q1f, q2f = float(p.q1_front), float(p.q2_front)
     q1r, q2r = float(p.q1_rear), float(p.q2_rear)
     wunc = float(p.w_uncertainty)
     q1u, q2u = float(p.q1_uncertainty), float(p.q2_uncertainty)
     efront, erear = float(p.ego_front), float(p.ego_rear)
+    zero = jnp.zeros((BLOCK,), f32)
+
+    # fit parameters (reference_path.get_local_plan's table generator)
+    ncoef = p.poly_order + 1
+    cs = [fit_ref[i, :] for i in range(ncoef)]
+    x_mid = fit_ref[ncoef, :]
+    inv_xscale = 1.0 / fit_ref[ncoef + 1, :]
+    x0r, dr, ox, oy, cph, sph, qx, qy = (
+        fit_ref[ncoef + 2 + i, :] for i in range(8))
+
+    def global_sample(s):
+        """Global-frame sample (x, y) at float index s: the op order of
+        get_local_plan's sample table (polyval_scaled_inv + rotate back)."""
+        sxr = x0r + dr * s
+        t = (sxr - x_mid) * inv_xscale
+        r = zero
+        for c in reversed(cs):
+            r = r * t + c
+        return ox + cph * sxr - sph * r, oy + sph * sxr + cph * r
+
+    def closest_point(x0, x1):
+        """find_closest_points for one query per lane."""
+        dx0 = x0 - qx
+        dy0 = x1 - qy
+        xl = cph * dx0 + sph * dy0
+        yl = cph * dy0 - sph * dx0
+        n0 = -2.0 * xl
+        n1 = -2.0 * yl
+
+        def scan(s, carry):
+            best_d, best_s = carry
+            sf = s.astype(f32)
+            sxg, syg = global_sample(sf)
+            ddx = sxg - qx
+            ddy = syg - qy
+            sxl = cph * ddx + sph * ddy
+            syl = cph * ddy - sph * ddx
+            d = (sxl * sxl + syl * syl + n0 * sxl) + n1 * syl
+            m = d < best_d  # strict: the first minimum wins (argmin)
+            return jnp.where(m, d, best_d), jnp.where(m, sf, best_s)
+
+        _, j = jax.lax.fori_loop(
+            0, S, scan, (jnp.full((BLOCK,), jnp.inf, f32), zero))
+
+        def exact(s):
+            sxg, syg = global_sample(s)
+            dxg = x0 - sxg
+            dyg = x1 - syg
+            return dxg * dxg + dyg * dyg, sxg, syg
+
+        best = exact(jnp.maximum(j - 1.0, 0.0))
+        for cand in (j, jnp.minimum(j + 1.0, float(S - 1))):
+            e = exact(cand)
+            m = e[0] < best[0]
+            best = tuple(jnp.where(m, a, b) for a, b in zip(e, best))
+        return best[1], best[2]
+
+    fr = [frame_ref[i, :] for i in range(N_FRAME)]
+    mox, moy, cyw, syw, fx0, fy0, mres, lox, hix, loy, hiy, hm1, wm1 = fr[:13]
+    inv = -1.0 / mres
+    W = fr[13].astype(jnp.int32)
+    lane = pl.program_id(0) * BLOCK + jax.lax.broadcasted_iota(
+        jnp.int32, (BLOCK,), 0)
+    base = lane * fr[14].astype(jnp.int32)
 
     def unc_sample(x0, x1):
-        """Bilinear costmap sample + map-frame gradient (models/uncertainty.py
-        semantics) via per-lane-block gather of the 4 corner-shifted maps."""
-        ox, oy = scl_ref[0, 0], scl_ref[0, 1]
-        cyw, syw = scl_ref[0, 2], scl_ref[0, 3]
-        fx0, fy0 = scl_ref[0, 4], scl_ref[0, 5]
-        ir = scl_ref[0, 6]
-        lox, hix = scl_ref[0, 7], scl_ref[0, 8]
-        loy, hiy = scl_ref[0, 9], scl_ref[0, 10]
-
-        d0 = x0 - ox
-        d1 = x1 - oy
+        """uncertainty.uncertainty_sample: (e, gx, gy) from the lane's map."""
+        d0 = x0 - mox
+        d1 = x1 - moy
         lx = cyw * d0 + syw * d1
         ly = -syw * d0 + cyw * d1
         inside = (lx >= lox) & (lx <= hix) & (ly >= loy) & (ly <= hiy)
-        fi = jnp.clip((fx0 - lx) * ir, 0.0, H - 1.0)
-        fj = jnp.clip((fy0 - ly) * ir, 0.0, W - 1.0)
-        i0 = jnp.clip(jnp.floor(fi), 0.0, H - 2.0)
-        j0 = jnp.clip(jnp.floor(fj), 0.0, W - 2.0)
-        ti = fi - i0
-        tj = fj - j0
-        idx = i0.astype(jnp.int32) * W + j0.astype(jnp.int32)
-        blk = jax.lax.shift_right_logical(idx, jnp.int32(7))
-        off = jax.lax.bitwise_and(idx, jnp.int32(LANE - 1))
-
-        v = [jnp.zeros((_TS, _TL), f32) for _ in range(4)]
-        for b in range(K):
-            hit = blk == b
-            for c in range(4):
-                row = jnp.broadcast_to(m4_ref[c * K + b : c * K + b + 1, :], (_TS, _TL))
-                g = jnp.take_along_axis(row, off, axis=1)
-                v[c] = jnp.where(hit, g, v[c])
-        v00, v01, v10, v11 = v
-
-        v0 = v00 * (1.0 - tj) + v01 * tj
-        v1 = v10 * (1.0 - tj) + v11 * tj
-        val = v0 * (1.0 - ti) + v1 * ti
-        dv_di = v1 - v0
-        dv_dj = (v01 - v00) * (1.0 - ti) + (v11 - v10) * ti
-        # d index / d map-frame pos = -1/res; c = val/100 (uncertainty.py:93)
-        gci = dv_di * (-ir) * 0.01
-        gcj = dv_dj * (-ir) * 0.01
-        # rotate grad back to global: R(yaw) @ grad_local
+        fi = jnp.minimum(jnp.maximum((fx0 - lx) / mres, 0.0), hm1)
+        fj = jnp.minimum(jnp.maximum((fy0 - ly) / mres, 0.0), wm1)
+        # floor, clipped to H-2 / W-2 so the +1 corners stay in the map
+        i0f = jnp.minimum(jnp.floor(fi), hm1 - 1.0)
+        j0f = jnp.minimum(jnp.floor(fj), wm1 - 1.0)
+        ti = fi - i0f
+        tj = fj - j0f
+        idx = base + i0f.astype(jnp.int32) * W + j0f.astype(jnp.int32)
+        v00 = umap_ref[idx]
+        v01 = umap_ref[idx + 1]
+        v10 = umap_ref[idx + W]
+        v11 = umap_ref[idx + (W + 1)]
+        v0 = v00 * (1 - tj) + v01 * tj
+        v1 = v10 * (1 - tj) + v11 * tj
+        val = v0 * (1 - ti) + v1 * ti
+        gci = (v1 - v0) * inv / 100.0
+        gcj = ((v01 - v00) * (1 - ti) + (v11 - v10) * ti) * inv / 100.0
         gx = cyw * gci - syw * gcj
         gy = syw * gci + cyw * gcj
-        e = q1u * jnp.exp(q2u * (val * 0.01))
-        e = jnp.where(inside, e, 0.0)
-        return e, gx, gy
+        e = q1u * jnp.exp(q2u * (val / 100.0))
+        return jnp.where(inside, e, 0.0), gx, gy
 
-    def step_derivs(j):
-        """(l_x, sparse l_xx, l_u, l_uu, J_step) at timestep j — the fused
-        equivalent of costs.all_cost_derivs_and_J for one step."""
-        x0 = X_ref[0, j, 0]
-        x1 = X_ref[0, j, 1]
-        x2 = X_ref[0, j, 2]
-        x3 = X_ref[0, j, 3]
-        u0 = U_ref[0, j, 0]
-        u1 = U_ref[0, j, 1]
+    def step_derivs(X, U, j):
+        """(l_x, sparse l_xx, l_u, l_uu, J_step) at timestep j: the fused
+        form of costs.all_cost_derivs_and_J for one step."""
+        x0 = X[j, 0, :]
+        x1 = X[j, 1, :]
+        x2 = X[j, 2, :]
+        x3 = X[j, 3, :]
+        u0 = U[j, 0, :]
+        u1 = U[j, 1, :]
 
         cxp, cyp = closest_point(x0, x1)
         ex = x0 - cxp
@@ -414,65 +278,52 @@ def _run_iteration(p: SolverParams, S: int, M: int, K: int, H: int, W: int,
         lx0 = (2.0 * wpos) * ex
         lx1 = (2.0 * wpos) * ey
         lx2 = (2.0 * wvel) * ev
-        s00, s01, s11 = 0.0, 0.0, 0.0
 
-        if has_obs:
-            cth = jnp.cos(x3)
-            sth = jnp.sin(x3)
-            exf = x0 + cth * efront
-            eyf = x1 + sth * efront
-            exr = x0 - cth * erear
-            eyr = x1 - sth * erear
-            for m in range(M):
-                g11 = obs_ref[m * 6 + 0, j]
-                g12 = obs_ref[m * 6 + 1, j]
-                g22 = obs_ref[m * 6 + 2, j]
-                px = obs_ref[m * 6 + 3, j]
-                py = obs_ref[m * 6 + 4, j]
-                msk = obs_ref[m * 6 + 5, j]
-                for (ecx, ecy, q1d, q2d) in (
-                    (exf, eyf, q1f, q2f),
-                    (exr, eyr, q1r, q2r),
-                ):
-                    dx = ecx - px
-                    dy = ecy - py
-                    gdx = g11 * dx + g12 * dy
-                    gdy = g12 * dx + g22 * dy
-                    cv = 1.0 - (dx * gdx + dy * gdy)
-                    e = (q1d * msk) * jnp.exp(q2d * cv)
-                    gx = -2.0 * gdx
-                    gy = -2.0 * gdy
-                    s1 = (wobs * q2d) * e
-                    s2 = (wobs * q2d * q2d) * e
-                    lx0 = lx0 + s1 * gx
-                    lx1 = lx1 + s1 * gy
-                    s00 = _padd(s00, s2 * gx * gx)
-                    s01 = _padd(s01, s2 * gx * gy)
-                    s11 = _padd(s11, s2 * gy * gy)
+        cth = jnp.cos(x3)
+        sth = jnp.sin(x3)
+        discs = (
+            (x0 + cth * efront, x1 + sth * efront, q1f, q2f),
+            (x0 - cth * erear, x1 - sth * erear, q1r, q2r),
+        )
 
-        if has_unc or uext_ref is not None:
-            if has_unc:
-                e, gx, gy = unc_sample(x0, x1)
-            else:
-                # external per-scenario sample planes (the hybrid path for
-                # batched uncertainty maps that cannot fit VMEM per lane):
-                # (e, gx, gy) computed by XLA at this iteration's X — see
-                # fused_optimize's unc_sampler
-                e = uext_ref[0, j, 0]
-                gx = uext_ref[0, j, 1]
-                gy = uext_ref[0, j, 2]
-            s1 = (wunc * q2u) * e
-            s2 = (wunc * q2u * q2u) * e
-            lx0 = lx0 + s1 * gx
-            lx1 = lx1 + s1 * gy
-            s00 = _padd(s00, s2 * gx * gx)
-            s01 = _padd(s01, s2 * gx * gy)
-            s11 = _padd(s11, s2 * gy * gy)
+        def obstacle(m, acc):
+            lx0, lx1, s00, s01, s11 = acc
+            g11, g12, g22, px, py, msk = (
+                obs_ref[m * 6 + i, j] for i in range(6))
+            for (ecx, ecy, q1d, q2d) in discs:
+                dx = ecx - px
+                dy = ecy - py
+                gdx = g11 * dx + g12 * dy
+                gdy = g12 * dx + g22 * dy
+                cv = 1.0 - (dx * gdx + dy * gdy)
+                e = (q1d * msk) * jnp.exp(q2d * cv)
+                gx = -2.0 * gdx
+                gy = -2.0 * gdy
+                s1 = (wobs * q2d) * e
+                s2 = (wobs * q2d * q2d) * e
+                lx0 = lx0 + s1 * gx
+                lx1 = lx1 + s1 * gy
+                s00 = s00 + s2 * gx * gx
+                s01 = s01 + s2 * gx * gy
+                s11 = s11 + s2 * gy * gy
+            return lx0, lx1, s00, s01, s11
+
+        lx0, lx1, s00, s01, s11 = jax.lax.fori_loop(
+            0, M, obstacle, (lx0, lx1, zero, zero, zero))
+
+        e, gx, gy = unc_sample(x0, x1)
+        s1 = (wunc * q2u) * e
+        s2 = (wunc * q2u * q2u) * e
+        lx0 = lx0 + s1 * gx
+        lx1 = lx1 + s1 * gy
+        s00 = s00 + s2 * gx * gx
+        s01 = s01 + s2 * gx * gy
+        s11 = s11 + s2 * gy * gy
 
         # control barriers (Constraints.cpp:86-137), yaw-rate bounds at the
         # concurrent state (Constraints.cpp:119-121)
-        b1 = q1a * jnp.exp(q2a * (u0 - amax))
-        b2 = q1a * jnp.exp(q2a * (amin - u0))
+        b1 = q1a * jnp.exp(q2a * (u0 - p.acc_max))
+        b2 = q1a * jnp.exp(q2a * (p.acc_min - u0))
         b3 = q1y * jnp.exp(q2y * (u1 - x2 * tan_hi))
         b4 = q1y * jnp.exp(q2y * (x2 * tan_lo - u1))
         lu0 = q2a * (b1 - b2) + (2.0 * wacc) * u0
@@ -486,438 +337,257 @@ def _run_iteration(p: SolverParams, S: int, M: int, K: int, H: int, W: int,
             + wacc * (u0 * u0)
             + wyr * (u1 * u1)
         )
+        lxx = (2.0 * wpos + s00, s01, 2.0 * wpos + s11, 2.0 * wvel)
+        return (lx0, lx1, lx2), lxx, (lu0, lu1), (luu00, luu11), Jstep
 
-        lx = (lx0, lx1, lx2)  # lx3 == 0 (yaw untracked, Constraints.cpp:168)
-        lxx = (2.0 * wpos + s00, s01, 2.0 * wpos + s11, 2.0 * wvel)  # xx,xy,yy,vv
-        luu = (luu00, luu11)  # l_uu off-diagonal is identically 0
-        return lx, lxx, (lu0, lu1), luu, Jstep
+    def iteration(lamb):
+        """Derivatives + backward Riccati (gains into k/K) + forward rollout
+        of the current X/U into Xp/Up.  Returns J of the current X/U and
+        whether every gain is finite."""
 
-    zero = jnp.zeros((_TS, _TL), f32)
+        def backward_body(t, carry):
+            Vx, Vxx_flat, Jacc, ok = carry
+            j = N - 1 - t
+            (lx0, lx1, lx2), (a00, a01, a11, a22), (lu0, lu1), (luu00, luu11), Jstep = (
+                step_derivs(X_ref, U_ref, j))
+            Jacc = Jacc + Jstep
+            # V seeded from the running cost at step N-1, which re-enters
+            # the recursion at j=N-1 (iLQR.cpp:108-113,133)
+            seed_x = (lx0, lx1, lx2, zero)
+            seed_xx = (a00, a01, zero, zero, a01, a11, zero, zero,
+                       zero, zero, a22, zero, zero, zero, zero, zero)
+            first = t == 0
+            Vx = [jnp.where(first, a, b) for a, b in zip(seed_x, Vx)]
+            Vxx_flat = [jnp.where(first, a, b) for a, b in zip(seed_xx, Vxx_flat)]
+            Vxx = [[Vxx_flat[4 * r + c] for c in range(4)] for r in range(4)]
 
-    def as_plane(v):
-        return v + zero if isinstance(v, float) else v
+            # jacobian ingredients at the successor state (iLQR.cpp:102-106)
+            v = X_ref[j + 1, 2, :]
+            th = X_ref[j + 1, 3, :]
+            a = U_ref[j, 0, :]
+            c = jnp.cos(th)
+            s = jnp.sin(th)
+            ds = v * dt + 0.5 * a * dt * dt
+            dtc = dt * c
+            dts = dt * s
+            sds = s * ds
+            cds = c * ds
+            hdt2c = 0.5 * dt * dt * c
+            hdt2s = 0.5 * dt * dt * s
 
-    def backward_body(t, carry):
-        Vx, Vxx_flat, Jacc = carry
-        Vxx = [[Vxx_flat[4 * r + cc] for cc in range(4)] for r in range(4)]
-        j = N - 1 - t
-
-        (lx0, lx1, lx2), (a00, a01, a11, a22), (lu0, lu1), (luu00, luu11), Jstep = step_derivs(j)
-        Jacc = Jacc + Jstep
-
-        # jacobian ingredients at the successor state (iLQR.cpp:102-106)
-        v = X_ref[0, j + 1, 2]
-        th = X_ref[0, j + 1, 3]
-        a = U_ref[0, j, 0]
-        c = jnp.cos(th)
-        s = jnp.sin(th)
-        ds = v * dt + 0.5 * a * dt * dt
-        dtc = dt * c
-        dts = dt * s
-        sds = s * ds
-        cds = c * ds
-        hdt2c = 0.5 * dt * dt * c
-        hdt2s = 0.5 * dt * dt * s
-
-        # Q_x = l_x + fx^T V_x (fx rows [1,0,dtc,-sds],[0,1,dts,cds],e2,e3)
-        Qx = [
-            lx0 + Vx[0],
-            lx1 + Vx[1],
-            lx2 + dtc * Vx[0] + dts * Vx[1] + Vx[2],
-            -sds * Vx[0] + cds * Vx[1] + Vx[3],  # l_x[3] == 0
-        ]
-        # Q_u = l_u + fu^T V_x
-        Qu = [
-            lu0 + hdt2c * Vx[0] + hdt2s * Vx[1] + dt * Vx[2],
-            lu1 + dt * Vx[3],
-        ]
-
-        def left_fx(col):
-            return [
-                col[0],
-                col[1],
-                dtc * col[0] + dts * col[1] + col[2],
-                -sds * col[0] + cds * col[1] + col[3],
+            # Q_x = l_x + fx^T V_x (fx rows [1,0,dtc,-sds],[0,1,dts,cds],e2,e3)
+            Qx = [
+                lx0 + Vx[0],
+                lx1 + Vx[1],
+                lx2 + dtc * Vx[0] + dts * Vx[1] + Vx[2],
+                -sds * Vx[0] + cds * Vx[1] + Vx[3],  # l_x[3] == 0
+            ]
+            Qu = [
+                lu0 + hdt2c * Vx[0] + hdt2s * Vx[1] + dt * Vx[2],
+                lu1 + dt * Vx[3],
             ]
 
-        Mx = [[None] * 4 for _ in range(4)]
-        for a2 in range(4):
-            colv = [Vxx[r][a2] for r in range(4)]
-            mcol = left_fx(colv)
+            def left_fx(col):
+                return [
+                    col[0],
+                    col[1],
+                    dtc * col[0] + dts * col[1] + col[2],
+                    -sds * col[0] + cds * col[1] + col[3],
+                ]
+
+            Mx = [[None] * 4 for _ in range(4)]
+            for a2 in range(4):
+                mcol = left_fx([Vxx[r][a2] for r in range(4)])
+                for b in range(4):
+                    Mx[b][a2] = mcol[b]
+
+            # Q_xx = l_xx + M fx with the sparse l_xx
+            lxx_mat = [
+                [a00, a01, 0.0, 0.0],
+                [a01, a11, 0.0, 0.0],
+                [0.0, 0.0, a22, 0.0],
+                [0.0, 0.0, 0.0, 0.0],
+            ]
+            Qxx = [[None] * 4 for _ in range(4)]
+            for b1 in range(4):
+                Qxx[b1][0] = _padd(lxx_mat[b1][0], Mx[b1][0])
+                Qxx[b1][1] = _padd(lxx_mat[b1][1], Mx[b1][1])
+                Qxx[b1][2] = _padd(
+                    lxx_mat[b1][2], dtc * Mx[b1][0] + dts * Mx[b1][1] + Mx[b1][2])
+                Qxx[b1][3] = _padd(
+                    lxx_mat[b1][3], -sds * Mx[b1][0] + cds * Mx[b1][1] + Mx[b1][3])
+
+            # N2 = fu^T V_xx (2x4); Q_ux = N2 fx; Q_uu = l_uu + N2 fu
+            N2 = [
+                [hdt2c * Vxx[0][a2] + hdt2s * Vxx[1][a2] + dt * Vxx[2][a2]
+                 for a2 in range(4)],
+                [dt * Vxx[3][a2] for a2 in range(4)],
+            ]
+            Qux = [[None] * 4 for _ in range(2)]
+            for r in range(2):
+                Qux[r][0] = N2[r][0]
+                Qux[r][1] = N2[r][1]
+                Qux[r][2] = dtc * N2[r][0] + dts * N2[r][1] + N2[r][2]
+                Qux[r][3] = -sds * N2[r][0] + cds * N2[r][1] + N2[r][3]
+            Quu00 = luu00 + hdt2c * N2[0][0] + hdt2s * N2[0][1] + dt * N2[0][2]
+            Quu01 = dt * N2[0][3]  # l_uu off-diagonal == 0
+            Quu10 = hdt2c * N2[1][0] + hdt2s * N2[1][1] + dt * N2[1][2]
+            Quu11 = luu11 + dt * N2[1][3]
+
+            # closed-form 2x2 eig clamp+shift inverse (iLQR.cpp:155-175,
+            # ops/eig2x2.py)
+            bsym = Quu01
+            half_tr = 0.5 * (Quu00 + Quu11)
+            half_df = 0.5 * (Quu00 - Quu11)
+            disc = jnp.sqrt(half_df * half_df + bsym * bsym)
+            w_lo = half_tr - disc
+            w_hi = half_tr + disc
+            safe = jnp.abs(bsym) > 1.1920929e-07 * (jnp.abs(Quu00) + jnp.abs(Quu11))
+            a_ge = Quu00 >= Quu11
+            vx1 = jnp.where(safe, bsym, jnp.where(a_ge, 1.0, 0.0))
+            vy1 = jnp.where(safe, w_hi - Quu00, jnp.where(a_ge, 0.0, 1.0))
+            nrm = jax.lax.rsqrt(vx1 * vx1 + vy1 * vy1)
+            vx1 = vx1 * nrm
+            vy1 = vy1 * nrm
+            i_hi = 1.0 / (jnp.maximum(w_hi, 0.0) + lamb)
+            i_lo = 1.0 / (jnp.maximum(w_lo, 0.0) + lamb)
+            I00 = i_hi * vx1 * vx1 + i_lo * vy1 * vy1
+            I01 = (i_hi - i_lo) * vx1 * vy1
+            I11 = i_hi * vy1 * vy1 + i_lo * vx1 * vx1
+
+            k0 = -(I00 * Qu[0] + I01 * Qu[1])
+            k1 = -(I01 * Qu[0] + I11 * Qu[1])
+            Krow = [[None] * 4 for _ in range(2)]
             for b in range(4):
-                Mx[b][a2] = mcol[b]
+                Krow[0][b] = -(I00 * Qux[0][b] + I01 * Qux[1][b])
+                Krow[1][b] = -(I01 * Qux[0][b] + I11 * Qux[1][b])
 
-        # Q_xx = l_xx + M fx with the sparse l_xx
-        # [[a00,a01,0,0],[a01,a11,0,0],[0,0,a22,0],[0,0,0,0]]
-        lxx_mat = [
-            [a00, a01, 0.0, 0.0],
-            [a01, a11, 0.0, 0.0],
-            [0.0, 0.0, a22, 0.0],
-            [0.0, 0.0, 0.0, 0.0],
-        ]
-        Qxx = [[None] * 4 for _ in range(4)]
-        for b1 in range(4):
-            Qxx[b1][0] = _padd(lxx_mat[b1][0], Mx[b1][0])
-            Qxx[b1][1] = _padd(lxx_mat[b1][1], Mx[b1][1])
-            Qxx[b1][2] = _padd(
-                lxx_mat[b1][2], dtc * Mx[b1][0] + dts * Mx[b1][1] + Mx[b1][2]
-            )
-            Qxx[b1][3] = _padd(
-                lxx_mat[b1][3], -sds * Mx[b1][0] + cds * Mx[b1][1] + Mx[b1][3]
+            t0 = Quu00 * k0 + Quu01 * k1
+            t1 = Quu10 * k0 + Quu11 * k1
+            Vx_n = tuple(Qx[b] - (Krow[0][b] * t0 + Krow[1][b] * t1)
+                         for b in range(4))
+            Wm = [
+                [Quu00 * Krow[0][b] + Quu01 * Krow[1][b] for b in range(4)],
+                [Quu10 * Krow[0][b] + Quu11 * Krow[1][b] for b in range(4)],
+            ]
+            Vxx_n = tuple(
+                Qxx[b1][b2] - (Krow[0][b1] * Wm[0][b2] + Krow[1][b1] * Wm[1][b2])
+                for b1 in range(4)
+                for b2 in range(4)
             )
 
-        # N2 = fu^T V_xx (2x4); Q_ux = N2 fx; Q_uu = l_uu + N2 fu
-        N2 = [
-            [hdt2c * Vxx[0][a2] + hdt2s * Vxx[1][a2] + dt * Vxx[2][a2] for a2 in range(4)],
-            [dt * Vxx[3][a2] for a2 in range(4)],
-        ]
-        Qux = [[None] * 4 for _ in range(2)]
-        for r in range(2):
-            Qux[r][0] = N2[r][0]
-            Qux[r][1] = N2[r][1]
-            Qux[r][2] = dtc * N2[r][0] + dts * N2[r][1] + N2[r][2]
-            Qux[r][3] = -sds * N2[r][0] + cds * N2[r][1] + N2[r][3]
-        Quu00 = luu00 + hdt2c * N2[0][0] + hdt2s * N2[0][1] + dt * N2[0][2]
-        Quu01 = dt * N2[0][3]  # l_uu off-diagonal == 0
-        Quu10 = hdt2c * N2[1][0] + hdt2s * N2[1][1] + dt * N2[1][2]
-        Quu11 = luu11 + dt * N2[1][3]
+            k_ref[j, 0, :] = k0
+            k_ref[j, 1, :] = k1
+            gains = jnp.isfinite(k0) & jnp.isfinite(k1)
+            for r in range(2):
+                for b in range(4):
+                    K_ref[j, 4 * r + b, :] = Krow[r][b]
+                    gains = gains & jnp.isfinite(Krow[r][b])
+            return (Vx_n, Vxx_n, Jacc, jnp.where(gains, ok, 0.0))
 
-        # closed-form 2x2 eig clamp+shift inverse (iLQR.cpp:155-175)
-        bsym = Quu01
-        half_tr = 0.5 * (Quu00 + Quu11)
-        half_df = 0.5 * (Quu00 - Quu11)
-        disc = jnp.sqrt(half_df * half_df + bsym * bsym)
-        w_lo = half_tr - disc
-        w_hi = half_tr + disc
-        safe = jnp.abs(bsym) > 1.1920929e-07 * (jnp.abs(Quu00) + jnp.abs(Quu11))
-        a_ge = Quu00 >= Quu11
-        vx1 = jnp.where(safe, bsym, jnp.where(a_ge, 1.0, 0.0))
-        vy1 = jnp.where(safe, w_hi - Quu00, jnp.where(a_ge, 0.0, 1.0))
-        nrm = jax.lax.rsqrt(vx1 * vx1 + vy1 * vy1)
-        vx1 = vx1 * nrm
-        vy1 = vy1 * nrm
-        i_hi = 1.0 / (jnp.maximum(w_hi, 0.0) + lamb)
-        i_lo = 1.0 / (jnp.maximum(w_lo, 0.0) + lamb)
-        I00 = i_hi * vx1 * vx1 + i_lo * vy1 * vy1
-        I01 = (i_hi - i_lo) * vx1 * vy1
-        I11 = i_hi * vy1 * vy1 + i_lo * vx1 * vx1
+        _, _, Jacc, ok = jax.lax.fori_loop(
+            0, N, backward_body, ((zero,) * 4, (zero,) * 16, zero, zero + 1.0))
 
-        k0 = -(I00 * Qu[0] + I01 * Qu[1])
-        k1 = -(I01 * Qu[0] + I11 * Qu[1])
-        Krow = [[None] * 4 for _ in range(2)]
-        for b in range(4):
-            Krow[0][b] = -(I00 * Qux[0][b] + I01 * Qux[1][b])
-            Krow[1][b] = -(I01 * Qux[0][b] + I11 * Qux[1][b])
-
-        t0 = Quu00 * k0 + Quu01 * k1
-        t1 = Quu10 * k0 + Quu11 * k1
-        Vx_n = tuple(Qx[b] - (Krow[0][b] * t0 + Krow[1][b] * t1) for b in range(4))
-        Wm = [
-            [Quu00 * Krow[0][b] + Quu01 * Krow[1][b] for b in range(4)],
-            [Quu10 * Krow[0][b] + Quu11 * Krow[1][b] for b in range(4)],
-        ]
-        Vxx_n = tuple(
-            Qxx[b1][b2] - (Krow[0][b1] * Wm[0][b2] + Krow[1][b1] * Wm[1][b2])
-            for b1 in range(4)
-            for b2 in range(4)
-        )
-
-        k_ref[0, j, 0] = k0
-        k_ref[0, j, 1] = k1
-        for r in range(2):
-            for b in range(4):
-                K_ref[0, j, 4 * r + b] = Krow[r][b]
-
-        return (Vx_n, Vxx_n, Jacc)
-
-    # V seeded from the running cost at step N-1, which re-enters the
-    # recursion at j=N-1 (iLQR.cpp:108-113,133)
-    (slx0, slx1, slx2), (sa00, sa01, sa11, sa22), _, _, _ = step_derivs(N - 1)
-    Vx0 = (slx0, slx1, slx2, zero)
-    Vxx_seed = [
-        [as_plane(sa00), as_plane(sa01), zero, zero],
-        [as_plane(sa01), as_plane(sa11), zero, zero],
-        [zero, zero, as_plane(sa22), zero],
-        [zero, zero, zero, zero],
-    ]
-    Vxx0 = tuple(Vxx_seed[r][cc] for r in range(4) for cc in range(4))
-
-    # Unroll: same op sequence, 1/U the loop/dynamic-index overhead.
-    # max_unroll=1 in interpret mode (a bigger traced body only slows the
-    # CPU interpreter; results are identical either way).
-    U_f = riccati_pallas.pick_unroll(N, max_unroll)
-
-    def backward_bodyU(t, carry):
-        for i in range(U_f):
-            carry = backward_body(U_f * t + i, carry)
-        return carry
-
-    _, _, Jacc = jax.lax.fori_loop(0, N // U_f, backward_bodyU, (Vx0, Vxx0, zero))
-
-    riccati_pallas._fwd_kernel(
-        N, p, (X_ref, U_ref, k_ref, K_ref, Xn_ref, Un_ref), max_unroll=max_unroll
-    )
-    return Jacc
-
-
-def _iter_kernel(p: SolverParams, S: int, M: int, K: int, H: int, W: int,
-                 has_obs: bool, has_unc: bool, max_unroll: int,
-                 has_unc_ext: bool, refs):
-    if has_unc_ext:
-        (fit_ref, sxy_ref, X_ref, U_ref, lamb_ref, uext_ref, obs_ref, m4_ref,
-         scl_ref, Xn_ref, Un_ref, J_ref, k_ref, K_ref) = refs
-    else:
-        (fit_ref, sxy_ref, X_ref, U_ref, lamb_ref, obs_ref, m4_ref, scl_ref,
-         Xn_ref, Un_ref, J_ref, k_ref, K_ref) = refs
-        uext_ref = None
-    fp = _read_fitp(p, fit_ref)
-    J_ref[0, 0] = _run_iteration(
-        p, S, M, K, H, W, has_obs, has_unc, max_unroll,
-        _make_closest_point(S, fp, sxy_ref), obs_ref, m4_ref, scl_ref,
-        X_ref, U_ref, lamb_ref[0, 0],
-        Xn_ref, Un_ref, k_ref, K_ref, uext_ref=uext_ref,
-    )
-
-
-def _opt_kernel(p: SolverParams, S: int, M: int, K: int, H: int, W: int,
-                has_obs: bool, has_unc: bool, max_unroll: int, refs):
-    """The ENTIRE LM loop (iLQR.cpp:211-239) in one kernel invocation per
-    tile: current X/U live in the output refs, the proposal in scratch, and
-    the accept/reject state (J, lambda, iteration count, done mask) rides
-    the fori_loop carry as (8, 128) planes.  Per-iteration HBM traffic is
-    zero; a tile whose lanes all converge skips the remaining iterations'
-    heavy body (pl.when), so early exit is per-tile rather than global."""
-    (fit_ref, X0_ref, U0_ref, obs_ref, m4_ref, scl_ref,
-     X_ref, U_ref, J_ref, lamb_ref, it_ref,
-     sxy_ref, Xp_ref, Up_ref, k_ref, K_ref, Jn_ref, done_ref) = refs
-
-    f32 = jnp.float32
-    N = p.horizon
-
-    # Regenerate the densified closest-point table (Constraints.cpp:28-42)
-    # in VMEM from the fit parameters — op-for-op the math of the vmap
-    # path (reference_path.get_local_plan tail + _local_channels), so
-    # interpret-mode parity holds bit-for-bit.  Saves the (B, S, 3) sample
-    # field's HBM round trip + tile transpose.
-    fp = _read_fitp(p, fit_ref)
-    _gen_sample_table(S, fp, sxy_ref)
-    closest_point = _make_closest_point(S, fp, sxy_ref)
-
-    for j in range(N + 1):
+        # closed-loop rollout u = U + k + K (x - X); x' = step(x, u) with the
+        # Model.cpp:17-30 clamps
         for i in range(4):
-            X_ref[0, j, i] = X0_ref[0, j, i]
-    for j in range(N):
-        for i in range(2):
-            U_ref[0, j, i] = U0_ref[0, j, i]
+            Xp_ref[0, i, :] = X_ref[0, i, :]
 
-    plane = lambda v, dt_=f32: jnp.full((_TS, _TL), v, dt_)
-
-    def lm_body(_, carry):
-        J_old, lamb, it, done = carry
-        # Skip the heavy body once every lane in this tile has converged —
-        # the masked carry update below is then a no-op.
-        active = jnp.max(1.0 - done) > 0.5
-
-        @pl.when(active)
-        def _():
-            Jn_ref[0, 0] = _run_iteration(
-                p, S, M, K, H, W, has_obs, has_unc, max_unroll,
-                closest_point, obs_ref, m4_ref, scl_ref,
-                X_ref, U_ref, lamb,
-                Xp_ref, Up_ref, k_ref, K_ref,
+        def forward_body(j, x):
+            x0, x1, x2, x3 = x
+            dx = [x0 - X_ref[j, 0, :], x1 - X_ref[j, 1, :],
+                  x2 - X_ref[j, 2, :], x3 - X_ref[j, 3, :]]
+            u0 = U_ref[j, 0, :] + k_ref[j, 0, :]
+            u1 = U_ref[j, 1, :] + k_ref[j, 1, :]
+            for b in range(4):
+                u0 = u0 + K_ref[j, b, :] * dx[b]
+                u1 = u1 + K_ref[j, 4 + b, :] * dx[b]
+            Up_ref[j, 0, :] = u0
+            Up_ref[j, 1, :] = u1
+            acc = jnp.clip(u0, p.acc_min, p.acc_max)
+            yr = jnp.clip(u1, x2 * tan_lo, x2 * tan_hi)
+            ds = x2 * dt + 0.5 * acc * dt * dt
+            nx = (
+                x0 + jnp.cos(x3) * ds,
+                x1 + jnp.sin(x3) * ds,
+                jnp.clip(x2 + acc * dt, 0.0, p.speed_max),
+                x3 + yr * dt,
             )
+            for i in range(4):
+                Xp_ref[j + 1, i, :] = nx[i]
+            return nx
 
-        # Same update order as the XLA loop (fused_optimize fallback) for
-        # bit parity: accept -> trajectory merge -> lambda -> stop -> masks.
-        J_new = Jn_ref[0, 0]
-        accept = J_new < J_old
+        jax.lax.fori_loop(
+            0, N, forward_body, tuple(X_ref[0, i, :] for i in range(4)))
+        return Jacc, ok > 0.5
+
+    def copy_in(j, c):
+        for i in range(4):
+            X_ref[j, i, :] = X0_ref[j, i, :]
+        for i in range(2):
+            U_ref[j, i, :] = U0_ref[j, i, :]
+        return c
+
+    jax.lax.fori_loop(0, N, copy_in, 0)
+    for i in range(4):
+        X_ref[N, i, :] = X0_ref[N, i, :]
+
+    def lm_cond(carry):
+        n_it, _, _, _, done, _ = carry
+        return (n_it < p.max_iterations) & (jnp.min(done) < 0.5)
+
+    def lm_body(carry):
+        n_it, J_old, lamb, it, done, failed = carry
+        J_new, ok = iteration(lamb)
+        # failed backward pass: stop, keep X/U/lambda (solver.optimize)
+        accept = (J_new < J_old) & ok
         upd = done < 0.5
-        take = jnp.logical_and(upd, accept)
+        take = upd & accept
 
-        # On an inactive tile `take` is statically all-false — skip the
-        # ~300-plane masked write-back too, completing the early exit.
-        @pl.when(active)
-        def _():
-            for j in range(N + 1):
-                for i in range(4):
-                    X_ref[0, j, i] = jnp.where(take, Xp_ref[0, j, i], X_ref[0, j, i])
-            for j in range(N):
-                for i in range(2):
-                    U_ref[0, j, i] = jnp.where(take, Up_ref[0, j, i], U_ref[0, j, i])
-        lamb_n = jnp.where(accept, lamb / p.lamb_factor, lamb * p.lamb_factor)
-        # stop as f32 planes — Mosaic can't select_n on i1 *data* vectors
+        def merge(j, c):
+            for i in range(4):
+                X_ref[j, i, :] = jnp.where(take, Xp_ref[j, i, :], X_ref[j, i, :])
+            for i in range(2):
+                U_ref[j, i, :] = jnp.where(take, Up_ref[j, i, :], U_ref[j, i, :])
+            return c
+
+        jax.lax.fori_loop(0, N, merge, 0)
+        for i in range(4):
+            X_ref[N, i, :] = jnp.where(take, Xp_ref[N, i, :], X_ref[N, i, :])
+        lamb_n = jnp.where(
+            ok, jnp.where(accept, lamb / p.lamb_factor, lamb * p.lamb_factor), lamb)
         stop = jnp.where(
-            accept,
-            jnp.where(jnp.abs(J_new - J_old) < p.tolerance, 1.0, 0.0),
-            jnp.where(lamb_n > p.lamb_max, 1.0, 0.0),
+            ok,
+            jnp.where(
+                accept,
+                jnp.where(jnp.abs(J_new - J_old) < p.tolerance, 1.0, 0.0),
+                jnp.where(lamb_n > p.lamb_max, 1.0, 0.0),
+            ),
+            1.0,
         )
-        J_o = jnp.where(upd, J_new, J_old)
-        lamb_o = jnp.where(upd, lamb_n, lamb)
-        it_o = jnp.where(upd, it + 1, it)
-        done_o = jnp.maximum(done, jnp.where(upd, stop, 0.0))
-        return (J_o, lamb_o, it_o, done_o)
+        return (
+            n_it + 1,
+            jnp.where(upd, J_new, J_old),
+            jnp.where(upd, lamb_n, lamb),
+            jnp.where(upd, it + 1, it),
+            jnp.maximum(done, jnp.where(upd, stop, 0.0)),
+            jnp.where(upd & ~ok, 1, failed),
+        )
 
-    # Materialize the initial carries through VMEM so the loop carry enters
-    # with a loaded (tiled) vector layout — Mosaic rejects splat-constant
-    # (replicated) initial carries against the body's tiled outputs.
-    J_ref[0, 0] = plane(jnp.finfo(f32).max)
-    lamb_ref[0, 0] = plane(p.lamb_init)
-    it_ref[0, 0] = jnp.zeros((_TS, _TL), jnp.int32)
-    done_ref[0, 0] = plane(0.0)
-    carry0 = (J_ref[0, 0], lamb_ref[0, 0], it_ref[0, 0], done_ref[0, 0])
-    J_fin, lamb_fin, it_fin, _ = jax.lax.fori_loop(
-        0, p.max_iterations, lm_body, carry0
+    carry0 = (
+        jnp.int32(0),
+        jnp.full((BLOCK,), jnp.finfo(f32).max, f32),
+        jnp.full((BLOCK,), p.lamb_init, f32),
+        jnp.zeros((BLOCK,), jnp.int32),
+        zero,
+        jnp.zeros((BLOCK,), jnp.int32),
     )
-    J_ref[0, 0] = J_fin
-    lamb_ref[0, 0] = lamb_fin
-    it_ref[0, 0] = it_fin
-
-
-def _auto_interpret(interpret):
-    """None -> Pallas interpreter on CPU (tests / dryruns), compiled on TPU."""
-    if interpret is None:
-        return jax.default_backend() == "cpu"
-    return interpret
-
-
-def fused_iteration(p: SolverParams, world: WorldPrep, fit_t, sxy_t, X_t, U_t,
-                    lamb_t, uext_t=None, interpret=None):
-    """One full LM iteration (derivs + backward + forward + J) per tile.
-
-    Args (tile layout, f32):
-      fit_t: (G, poly_order+11, 1, 8, 128) fit payload (``_fit_payload``);
-      sxy_t: (G, S, 3, 8, 128) local sample channels [sxl, syl, r];
-      X_t: (G, N+1, 4, 8, 128); U_t: (G, N, 2, 8, 128);
-      lamb_t: (G, 1, 8, 128);
-      uext_t: optional (G, N, 3, 8, 128) external uncertainty sample
-        planes [e, gx, gy] (the hybrid per-scenario-map mode — replaces
-        the in-kernel sampler; world.has_unc must be False).
-    Returns (Xn_t, Un_t, J (G, 8, 128)) — J is the acceptance cost of the
-    *input* trajectory (iLQR.cpp:217 semantics, see solver.optimize).
-    """
-    G = X_t.shape[0]
-    N = p.horizon
-    S = sxy_t.shape[1]
-    M = world.obs.shape[0] // 6
-    K = world.m4.shape[0] // 4
-    H, W = world.hw
-    f32 = jnp.float32
-    interpret = _auto_interpret(interpret)
-
-    kern = functools.partial(
-        _iter_kernel, p, S, M, K, H, W, world.has_obs, world.has_unc,
-        1 if interpret else 10, uext_t is not None,
-    )
-
-    if uext_t is None:
-        def kernel_entry(fit_r, sxy_r, X_r, U_r, lamb_r, obs_r, m4_r, scl_r,
-                         Xn_r, Un_r, J_r, k_s, K_s):
-            kern((fit_r, sxy_r, X_r, U_r, lamb_r, obs_r, m4_r, scl_r,
-                  Xn_r, Un_r, J_r, k_s, K_s))
-    else:
-        def kernel_entry(fit_r, sxy_r, X_r, U_r, lamb_r, uext_r, obs_r, m4_r,
-                         scl_r, Xn_r, Un_r, J_r, k_s, K_s):
-            kern((fit_r, sxy_r, X_r, U_r, lamb_r, uext_r, obs_r, m4_r, scl_r,
-                  Xn_r, Un_r, J_r, k_s, K_s))
-
-    C = fit_t.shape[1]
-    in_specs = [
-        _spec(C, 1),
-        _spec(S, 3),
-        _spec(N + 1, 4),
-        _spec(N, 2),
-        _PLANE_SPEC,
-    ]
-    args = [fit_t, sxy_t, X_t, U_t, lamb_t]
-    if uext_t is not None:
-        in_specs.append(_spec(N, 3))
-        args.append(uext_t)
-    in_specs += [
-        _shared(world.obs, pltpu.SMEM),
-        _shared(world.m4, pltpu.VMEM),
-        _shared(world.scl, pltpu.SMEM),
-    ]
-    args += [world.obs, world.m4, world.scl]
-    Xn_t, Un_t, J_t = pl.pallas_call(
-        kernel_entry,
-        grid=(G,),
-        in_specs=in_specs,
-        out_specs=[_spec(N + 1, 4), _spec(N, 2), _PLANE_SPEC],
-        out_shape=[
-            jax.ShapeDtypeStruct((G, N + 1, 4, _TS, _TL), f32),
-            jax.ShapeDtypeStruct((G, N, 2, _TS, _TL), f32),
-            jax.ShapeDtypeStruct((G, 1, _TS, _TL), f32),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((1, N, 2, _TS, _TL), f32),
-            pltpu.VMEM((1, N, 8, _TS, _TL), f32),
-        ],
-        interpret=interpret,
-    )(*args)
-    return Xn_t, Un_t, J_t[:, 0]
-
-
-def _fused_optimize_call(p: SolverParams, world: WorldPrep, fit_t, X0_t, U0_t,
-                         interpret=None):
-    """pallas_call wrapper for ``_opt_kernel`` (whole LM loop per tile).
-
-    Args in kernel tile layout (f32): fit_t (G, poly_order+11, 1, 8, 128)
-    (coeffs + basis + sample-frame params — the sample table is regenerated
-    in VMEM); X0_t (G, N+1, 4, 8, 128); U0_t (G, N, 2, 8, 128).
-    Returns (X_t, U_t, J (G, 8, 128), lamb (G, 8, 128), it (G, 8, 128) i32)."""
-    G = X0_t.shape[0]
-    N = p.horizon
-    S = p.n_closest_samples
-    M = world.obs.shape[0] // 6
-    K = world.m4.shape[0] // 4
-    H, W = world.hw
-    f32 = jnp.float32
-    interpret = _auto_interpret(interpret)
-
-    kern = functools.partial(
-        _opt_kernel, p, S, M, K, H, W, world.has_obs, world.has_unc,
-        1 if interpret else 10,
-    )
-
-    def kernel_entry(fit_r, X0_r, U0_r, obs_r, m4_r, scl_r,
-                     X_r, U_r, J_r, lamb_r, it_r,
-                     sxy_s, Xp_s, Up_s, k_s, K_s, Jn_s, done_s):
-        kern((fit_r, X0_r, U0_r, obs_r, m4_r, scl_r,
-              X_r, U_r, J_r, lamb_r, it_r,
-              sxy_s, Xp_s, Up_s, k_s, K_s, Jn_s, done_s))
-
-    C = fit_t.shape[1]
-    X_t, U_t, J_t, lamb_t, it_t = pl.pallas_call(
-        kernel_entry,
-        grid=(G,),
-        in_specs=[
-            _spec(C, 1),
-            _spec(N + 1, 4),
-            _spec(N, 2),
-            _shared(world.obs, pltpu.SMEM),
-            _shared(world.m4, pltpu.VMEM),
-            _shared(world.scl, pltpu.SMEM),
-        ],
-        out_specs=[_spec(N + 1, 4), _spec(N, 2), _PLANE_SPEC, _PLANE_SPEC, _PLANE_SPEC],
-        out_shape=[
-            jax.ShapeDtypeStruct((G, N + 1, 4, _TS, _TL), f32),
-            jax.ShapeDtypeStruct((G, N, 2, _TS, _TL), f32),
-            jax.ShapeDtypeStruct((G, 1, _TS, _TL), f32),
-            jax.ShapeDtypeStruct((G, 1, _TS, _TL), f32),
-            jax.ShapeDtypeStruct((G, 1, _TS, _TL), jnp.int32),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((1, S, 3, _TS, _TL), f32),
-            pltpu.VMEM((1, N + 1, 4, _TS, _TL), f32),
-            pltpu.VMEM((1, N, 2, _TS, _TL), f32),
-            pltpu.VMEM((1, N, 2, _TS, _TL), f32),
-            pltpu.VMEM((1, N, 8, _TS, _TL), f32),
-            pltpu.VMEM((1, 1, _TS, _TL), f32),
-            pltpu.VMEM((1, 1, _TS, _TL), f32),
-        ],
-        interpret=interpret,
-    )(fit_t, X0_t, U0_t, world.obs, world.m4, world.scl)
-    return X_t, U_t, J_t[:, 0], lamb_t[:, 0], it_t[:, 0]
+    _, J_fin, lamb_fin, it_fin, _, fail_fin = jax.lax.while_loop(
+        lm_cond, lm_body, carry0)
+    J_ref[...] = J_fin
+    lamb_ref[...] = lamb_fin
+    it_ref[...] = it_fin
+    fail_ref[...] = fail_fin
 
 
 def fused_optimize(
@@ -927,100 +597,66 @@ def fused_optimize(
     U_init: jax.Array,
     obstacles=None,
     unc_map=None,
-    interpret=None,
-    inkernel_loop: bool = True,
-    unc_sampler=None,
+    interpret: bool = False,
 ):
-    """LM loop (iLQR.cpp:211-239 semantics, per-lane masks) carried entirely
-    in kernel tile layout.  Default: the whole loop runs inside ONE kernel
-    invocation per tile (``_opt_kernel``) — zero per-iteration HBM traffic
-    and per-tile early exit.  ``inkernel_loop=False`` keeps the previous
-    one-kernel-call-per-iteration form with XLA accept/reject bookkeeping
-    (same numerics, used as a cross-check).
+    """LM loop (iLQR.cpp:201-245 semantics, per-lane masks) in one launch.
 
-    unc_sampler: hybrid mode for PER-SCENARIO uncertainty maps (which
-    cannot fit the kernel's VMEM per lane): a callable
-    (B, N, 4) states -> (B, N, 3) planes [e, gx, gy]
-    (models/uncertainty.uncertainty_sample semantics) evaluated by XLA at
-    each iteration's current trajectory and fed to the kernel as external
-    sample planes.  Forces the per-iteration loop; mutually exclusive with
-    ``unc_map``.
-
-    Same signature/return as ``solver_batched.batched_optimize``."""
-    if unc_sampler is not None:
-        if unc_map is not None:
-            raise ValueError("unc_sampler and unc_map are mutually exclusive")
-        inkernel_loop = False
+    Same signature and return as ``solver_batched.batched_optimize``, for
+    shared obstacles and a shared or per-scenario uncertainty map; every
+    world kind runs the same compiled kernel (absent obstacles and maps add
+    exact zeros).  The batch is padded to a multiple of ``BLOCK`` with
+    copies of lane 0 (sliced off again).  ``interpret=True`` runs the Pallas
+    interpreter (the CPU tests); otherwise the kernel compiles for the GPU
+    through Triton.
+    """
+    if obstacles is not None and obstacles.pos.ndim != 3:
+        raise ValueError("the fused kernel takes shared obstacles only")
     B = x0s.shape[0]
-    if B % TILE:
-        raise ValueError(f"batch {B} must be a multiple of {TILE}")
-    G = B // TILE
+    Bp = -(-B // BLOCK) * BLOCK
     f32 = jnp.float32
+    N = p.horizon
+    S = p.n_closest_samples
+
+    def pad(a):
+        if Bp == B:
+            return a
+        return jnp.concatenate(
+            [a, jnp.broadcast_to(a[:1], (Bp - B,) + a.shape[1:])], axis=0)
 
     X0 = jax.vmap(lambda e, u: dynamics.rollout(p, e, u))(x0s, U_init)
-    X_t = _to_tiles(X0.astype(f32), B)
-    U_t = _to_tiles(U_init.astype(f32), B)
-    world = prep_world(p, obstacles, unc_map, f32)
+    X0_t = jnp.transpose(pad(X0.astype(f32)), (1, 2, 0))      # (N+1, 4, Bp)
+    U0_t = jnp.transpose(pad(U_init.astype(f32)), (1, 2, 0))  # (N, 2, Bp)
+    fit = _fit_payload(jax.tree.map(pad, plans))               # (C, Bp)
+    obs = prep_obstacles(p, obstacles, f32)
+    if unc_map is not None and unc_map.values.ndim == 3:
+        unc_map = jax.tree.map(pad, unc_map)
+    umap, frame = prep_unc_map(unc_map, Bp, f32)
 
-    fit_t = _to_tiles(_fit_payload(plans)[:, :, None], B)  # (G, C, 1, 8, 128)
-
-    if inkernel_loop:
-        X_t, U_t, J, lamb, it = _fused_optimize_call(
-            p, world, fit_t, X_t, U_t, interpret
-        )
-        X = _from_tiles(X_t, B, (4,))
-        U = _from_tiles(U_t, B, (2,))
-        return X, U, it.reshape(B), J.reshape(B), lamb.reshape(B)
-
-    sxy = jnp.stack(
-        [plans.sample_xl, plans.sample_yl, plans.sample_r], axis=-1
-    )  # (B, S, 3)
-    sxy_t = _to_tiles(sxy.astype(f32), B)
-    plane = lambda v, dt_=f32: jnp.full((G, _TS, _TL), v, dt_)
-    big = plane(jnp.finfo(f32).max)
-
-    def cond(carry):
-        X, U, J_old, lamb, it, done = carry
-        return jnp.any(jnp.logical_and(~done, it < p.max_iterations))
-
-    def body(carry):
-        X, U, J_old, lamb, it, done = carry
-        uext_t = None
-        if unc_sampler is not None:
-            Xb = _from_tiles(X, B, (4,))  # (B, N+1, 4)
-            uext_t = _to_tiles(
-                unc_sampler(Xb[:, : p.horizon]).astype(f32), B
-            )
-        Xn, Un, J_new = fused_iteration(
-            p, world, fit_t, sxy_t, X, U, lamb[:, None], uext_t=uext_t,
-            interpret=interpret,
-        )
-        accept = J_new < J_old
-        acc5 = accept[:, None, None, :, :]
-        X_n = jnp.where(acc5, Xn, X)
-        U_n = jnp.where(acc5, Un, U)
-        lamb_n = jnp.where(accept, lamb / p.lamb_factor, lamb * p.lamb_factor)
-        stop = jnp.where(
-            accept, jnp.abs(J_new - J_old) < p.tolerance, lamb_n > p.lamb_max
-        )
-        done5 = done[:, None, None, :, :]
-        X_o = jnp.where(done5, X, X_n)
-        U_o = jnp.where(done5, U, U_n)
-        J_o = jnp.where(done, J_old, J_new)
-        lamb_o = jnp.where(done, lamb, lamb_n)
-        it_o = jnp.where(done, it, it + 1)
-        return (X_o, U_o, J_o, lamb_o, it_o, done | stop)
-
-    carry0 = (
-        X_t,
-        U_t,
-        big,
-        plane(p.lamb_init),
-        jnp.zeros((G, _TS, _TL), jnp.int32),
-        jnp.zeros((G, _TS, _TL), bool),
-    )
-    X_t, U_t, J, lamb, it, _ = jax.lax.while_loop(cond, body, carry0)
-
-    X = _from_tiles(X_t, B, (4,))
-    U = _from_tiles(U_t, B, (2,))
-    return X, U, it.reshape(B), J.reshape(B), lamb.reshape(B)
+    kern = functools.partial(_opt_kernel, p, S, obs.shape[0] // 6)
+    lanes = lambda *lead: pl.BlockSpec(
+        lead + (BLOCK,), lambda g: (0,) * len(lead) + (g,))
+    whole = lambda a: pl.BlockSpec(a.shape, lambda g: (0,) * a.ndim)
+    C = fit.shape[0]
+    out_shapes = [
+        ((N + 1, 4), f32), ((N, 2), f32), ((), f32), ((), f32), ((), jnp.int32),
+        ((), jnp.int32), ((N + 1, 4), f32), ((N, 2), f32), ((N, 2), f32), ((N, 8), f32),
+    ]
+    outs = pl.pallas_call(
+        kern,
+        grid=(Bp // BLOCK,),
+        in_specs=[
+            lanes(C), lanes(N + 1, 4), lanes(N, 2), whole(obs),
+            lanes(N_FRAME), whole(umap),
+        ],
+        out_specs=[lanes(*lead) for lead, _ in out_shapes],
+        out_shape=[jax.ShapeDtypeStruct(lead + (Bp,), dt) for lead, dt in out_shapes],
+        compiler_params=pltriton.CompilerParams(num_warps=BLOCK // 32,
+                                                num_stages=1),
+        interpret=interpret,
+        backend="triton",
+        name="cilqr_lm_solve",
+    )(fit, X0_t, U0_t, obs, frame, umap)
+    X_t, U_t, J, lamb, it, failed = outs[:6]
+    X = jnp.transpose(X_t, (2, 0, 1))[:B]
+    U = jnp.transpose(U_t, (2, 0, 1))[:B]
+    return X, U, it[:B], J[:B], lamb[:B], failed[:B] > 0

@@ -1,352 +1,129 @@
-"""Pallas TPU kernel for the uncertainty-propagation hot loop.
+"""Uncertainty propagation for the GPU: one Triton program per map tile.
 
-TPU-native re-expression of the reference's hottest code path: the
-Gaussian-weighted ellipse accumulation that the reference runs as an
-OpenMP x8 *host* loop despite shipping a CUDA file
-(``arbitrary_transformation.cu:102-151``; device passes only compute per-cell
-sigma/ellipse params, :37-89).
+The XLA form (``costmap.propagate_uncertainty_reference``) is a ``fori_loop``
+over the (2R+1)^2 window offsets; under ``vmap`` each offset re-reads the
+prior, validity and covariance planes of every scenario from device memory
+and rewrites num/den.  This kernel instead runs one program per
+(scenario, TR x TC output tile): it loads the tile's covariance fields once,
+then walks every window offset on chip, reading the shifted prior tile from
+the tile's halo (a few KB, served from L1/L2 after the first touch).
 
-Design:
-* Per-cell covariance terms (sigma_x_i, sigma_y_i, rho — ARBIT.cuh:51-69)
-  are cheap elementwise math; they are precomputed by XLA and fused.
-* The kernel holds the R-padded prior and all per-cell terms in VMEM
-  (~0.5 MB at the default 152x104 geometry — far under the ~16 MB budget)
-  and runs the (2R+1)^2-offset accumulation entirely on the VPU:
-  625 shifted fused multiply-adds for the default window, no HBM traffic
-  after the initial load.
-* The data-dependent EllipseIterator footprint becomes the analytic inside
-  test  q / (1 - rho^2) <= chi^2  (see ops/costmap.py docstring for the
-  equivalence proof sketch) fused into the weight mask.
+Semantics are those of the reference, offset for offset (di outer, dj
+inner, the same weights and inside-ellipse test), with two exact savings:
+
+* per row tile the window radius is the band radius from the static
+  ``costmap.BandPlan`` (a loop bound), not the worst-case map corner;
+* offsets outside each band's disc radius are skipped (they carry w = 0).
+
+The gathered prior is zero-padded by the largest radius, so every load is
+in bounds; the in-map test uses the global cell ids, as the reference's
+validity plane does.
 """
 
 from __future__ import annotations
 
 import functools
-import math as _math
-from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
 from cilqr_tpu.ops import costmap as costmap_mod
 from cilqr_tpu.ops import gridmap
 from cilqr_tpu.utils.params import CostmapParams
 
-# Row-offset static-unroll ceiling: windows up to this many offsets unroll
-# the row loop statically (every prior slice a compile-time VMEM address —
-# the serving fast path, ~5x the dynamic form at full-stack geometry).
-# ABOVE the ceiling, compiled batched kernels switch to the ALIGNED-GROUP
-# row loop (see _accumulate's "aligned" mode): Mosaic cannot lower plain
-# dynamic sublane starts for rank-3 refs, and a mega-unroll's compile time
-# grows superlinearly with window area (measured: the R=62 production-sweep
-# band ground the remote Mosaic compile > 30 min unrolled vs 65 s aligned).
-_UNROLL_MAX_OFFSETS = 4096
+#: output tile (rows, cols): powers of two, 8 rows = one band of the default
+#: band plan
+TR, TC = 8, 16
 
 
-def _accumulate(R: int, res: float, chi2: float, rows: int, cols: int,
-                prior_pad_ref, sx, sy, rho,
-                row0: int = 0, total_rows: int = None,
-                r_disc: float = None, unroll_rows: bool = False,
-                pad_off: int = 0):
-    """Shared accumulation body: (num, den) of the Gaussian-weighted ellipse
-    average for ``rows`` map rows given their per-cell covariance fields.
+def tile_tables(band_plan, rows: int, window_radius: int):
+    """Per-row-tile window radius (int32) and squared disc radius (f32).
 
-    Banded use: ``rows`` may be a row band starting at global row ``row0``
-    of a ``total_rows``-row map whose R-padded prior fills
-    ``prior_pad_ref``; the in-map masks and padded slicing then use global
-    row ids.  Enlarging/shrinking the window is EXACT as long as it covers
-    every cell's 95% ellipse — offsets beyond the ellipse contribute
-    w = 0.
+    A tile covering rows of several bands takes their largest radius;
+    without a disc radius the cut is the full square (2 R^2)."""
+    n_rt = -(-rows // TR)
+    radius = np.zeros(n_rt, np.int32)
+    disc2 = np.zeros(n_rt, np.float32)
+    if band_plan is None:
+        bands = ((0, rows, window_radius),)
+        discs = (None,)
+    else:
+        bands = band_plan.bands
+        discs = band_plan.disc_radii or (None,) * len(bands)
+    for (r0, br, Rb), rd in zip(bands, discs):
+        d2 = 2.0 * Rb * Rb if rd is None else float(rd) ** 2
+        for t in range(r0 // TR, -(-(r0 + br) // TR)):
+            radius[t] = max(radius[t], Rb)
+            disc2[t] = max(disc2[t], d2)
+    return radius, disc2
 
-    ``r_disc`` (cells, float): exact disc cut.  Every point of every cell's
-    95% ellipse satisfies |d|^2 <= chi^2 lambda_max(cov) <= (r_disc res)^2
-    when r_disc = chi sqrt(max(sx_hi, sy_hi)^2 + st_hi^2 lever_max^2) / res
-    (lambda_max(A+B) <= lambda_max(A) + lambda_max(B) on the diagonal +
-    rank-1 split), so offsets with di^2 + dj^2 > r_disc^2 are statically
-    skipped — the (2R+1)^2 square shrinks to its inscribed disc (~pi/4 of
-    the trips) with bit-identical results."""
-    if total_rows is None:
-        total_rows = rows
-    r_disc2 = None if r_disc is None else float(r_disc) * float(r_disc)
-    # pad_off: extra padding margin when prior_pad_ref was padded by more
-    # than R (the fused-band kernel pads once with the max band radius)
-    W = 2 * R + 1
+
+def _kernel(res: float, chi2: float, rows: int, cols: int, P: int,
+            prior_batched: bool,
+            radius_ref, disc2_ref, prior_ref, sx_ref, sy_ref, rho_ref, psd_ref,
+            out_ref):
+    f32 = jnp.float32
+    b = pl.program_id(0)
+    ti = pl.program_id(1)
+    tj = pl.program_id(2)
+    r0 = ti * TR
+    c0 = tj * TC
+    tile = lambda ref: ref[b, pl.ds(r0, TR), pl.ds(c0, TC)]
+    sx, sy, rho, psd = tile(sx_ref), tile(sy_ref), tile(rho_ref), tile(psd_ref)
+
+    def prior_at(i, j):
+        """Prior tile at row/col offset (i, j) into the P-padded prior."""
+        if prior_batched:
+            return prior_ref[b, pl.ds(r0 + i, TR), pl.ds(c0 + j, TC)]
+        return prior_ref[pl.ds(r0 + i, TR), pl.ds(c0 + j, TC)]
+
     one_m_rho2 = 1.0 - rho * rho
     inv_det2 = 1.0 / (2.0 * one_m_rho2)
-    # Gaussian normalizer omitted: per-output-cell constant, cancels in num/den
     thresh = chi2 * one_m_rho2
-
-    # neighbor-in-map masks come from global cell ids; hoisted to per-cell
-    # BOUNDS so the inner body compares the scalar row offset directly
-    row_id = jax.lax.broadcasted_iota(jnp.int32, (rows, cols), 0) + row0
-    col_id = jax.lax.broadcasted_iota(jnp.int32, (rows, cols), 1)
-    row_lo = -row_id                 # di - R >= row_lo
-    row_hi = total_rows - row_id     # di - R <  row_hi
-
     inv_sx = 1.0 / sx
     inv_sy = 1.0 / sy
     two_rho = rho + rho
+    row_id = r0 + jax.lax.broadcasted_iota(jnp.int32, (TR, TC), 0)
+    col_id = c0 + jax.lax.broadcasted_iota(jnp.int32, (TR, TC), 1)
 
-    # Mosaic cannot prove dynamic lane-dim (dim 1) slice alignment, so the
-    # column offset dj is a *static* Python unroll (W slices at compile-time
-    # lane rotations) while the row offset di stays a dynamic fori_loop on
-    # the sublane dim.
-    num0 = jnp.zeros((rows, cols), jnp.float32)
-    num, den = num0, num0
-    for dj in range(W):
-        dj_off = dj - R
-        if r_disc2 is not None and dj_off * dj_off > r_disc2:
-            continue  # whole column of offsets outside the disc: w = 0
-        if r_disc2 is None:
-            di_lo, di_hi = 0, W
-        else:
-            m = min(R, int(_math.floor(_math.sqrt(r_disc2 - dj_off * dj_off))))
-            di_lo, di_hi = R - m, R + m + 1
-        dy = -(dj - R) * res
-        zy = dy * inv_sy
-        # q = zx^2 - 2 rho zx zy + zy^2 = (zx - t2) zx + zy2 with the per-dj
-        # planes hoisted out of the di loop (3 ops/offset instead of 5)
-        t2 = two_rho * zy
-        zy2 = zy * zy
-        col_ok = (col_id + (dj - R) >= 0) & (col_id + (dj - R) < cols)
+    R = radius_ref[ti]
+    d2 = disc2_ref[ti]
+    Rf = R.astype(f32)
 
-        def body(di, acc, p_j=None, di_window=None,
-                 t2=t2, zy2=zy2, col_ok=col_ok, dj=dj):
+    # offsets (di, dj) = (a - R, c - R) walked with non-negative a, c in
+    # [0, 2R], so no negative integer meets an index or a conversion
+    def di_body(a, acc):
+        af = a.astype(f32)
+        # dj range inside the disc; over-inclusion is exact (w = 0 there)
+        m = jnp.floor(jnp.sqrt(jnp.maximum(d2 - (af - Rf) * (af - Rf), 0.0)) + 0.5)
+        m = jnp.minimum(m.astype(jnp.int32), R)
+        zx = ((Rf - af) * res) * inv_sx
+        row_ok = (row_id + a >= R) & (row_id + a < rows + R)
+
+        def dj_body(c, acc):
             num, den = acc
-            # neighbor j at index offset (di-R, dj-R) -> position offset
-            # (-(di-R)*res, -(dj-R)*res)
-            dif = di - R
-            dx = -jnp.float32(dif) * res if isinstance(di, int) else (
-                -(dif).astype(jnp.float32) * res
-            )
-            if p_j is None:
-                if prior_pad_ref.ndim == 3:  # per-scenario prior block (1,.,.)
-                    p_j = prior_pad_ref[
-                        0, pl.ds(di + row0 + pad_off, rows),
-                        dj + pad_off : dj + pad_off + cols,
-                    ]
-                else:
-                    p_j = prior_pad_ref[
-                        pl.ds(di + row0 + pad_off, rows),
-                        dj + pad_off : dj + pad_off + cols,
-                    ]
-            in_map = col_ok & (dif >= row_lo) & (dif < row_hi)
-            if di_window is not None:
-                in_map = in_map & di_window
-            zx = dx * inv_sx
-            q = (zx - t2) * zx + zy2
+            zy = ((Rf - c.astype(f32)) * res) * inv_sy
+            q = (zx - two_rho * zy) * zx + zy * zy
+            in_map = row_ok & (col_id + c >= R) & (col_id + c < cols + R)
             f = jnp.exp(-q * inv_det2)
             w = jnp.where((q <= thresh) & in_map, f, 0.0)
-            return (num + w * p_j, den + w)
+            return num + w * prior_at(a + (P - R), c + (P - R)), den + w
 
-        if unroll_rows == "aligned":
-            # Dynamic di for batched (rank-3) refs: Mosaic only lowers
-            # dynamic SUBLANE slice starts it can prove 8-aligned, so the
-            # row loop walks aligned groups of 8 — one provably-aligned
-            # (pl.multiple_of) load of rows+8 sublanes per group, then 8
-            # STATIC value sub-slices (sublane shifts), with the di range
-            # enforced as a runtime mask.  Same offsets, same arithmetic,
-            # bit-identical to the unrolled path; module size is ~8 bodies
-            # per column instead of one per window row (compiles at any
-            # radius).  Caller must bottom-pad the prior by _ALIGN_EXTRA.
-            C = row0 + pad_off
-            RE = ((rows + 8) + 7) // 8 * 8
-            g_lo = (di_lo + C) // 8
-            g_hi = (di_hi - 1 + C) // 8 + 1
+        return jax.lax.fori_loop(R - m, R + m + 1, dj_body, acc)
 
-            def gbody(g, acc, dj=dj, body=body):
-                base = pl.multiple_of(g * 8, 8)
-                if prior_pad_ref.ndim == 3:
-                    block = prior_pad_ref[
-                        0, pl.ds(base, RE), dj + pad_off : dj + pad_off + cols
-                    ]
-                else:
-                    block = prior_pad_ref[
-                        pl.ds(base, RE), dj + pad_off : dj + pad_off + cols
-                    ]
-                for r in range(8):
-                    di = g * 8 + r - C
-                    win = (di >= di_lo) & (di < di_hi)
-                    p_j = jax.lax.slice_in_dim(block, r, r + rows, axis=0)
-                    acc = body(di, acc, p_j=p_j, di_window=win)
-                return acc
-
-            num, den = jax.lax.fori_loop(g_lo, g_hi, gbody, (num, den))
-        elif unroll_rows:
-            # static di: every prior slice is a compile-time VMEM address
-            # (no dynamic sublane shift per offset)
-            for di in range(di_lo, di_hi):
-                num, den = body(di, (num, den))
-        else:
-            num, den = jax.lax.fori_loop(di_lo, di_hi, body, (num, den))
-    return num, den
-
-
-#: extra bottom-row padding (sublanes) the aligned-group row loop may
-#: physically read past the last logical window row (masked to w = 0)
-_ALIGN_EXTRA = 16
-
-
-def _finish(num, den, psd, prior):
+    zero = jnp.zeros((TR, TC), f32)
+    num, den = jax.lax.fori_loop(0, 2 * R + 1, di_body, (zero, zero))
     good = (psd > 0.0) & (den > 0.0)
-    # the weighted average of occupancies in [0, 100] is in [0, 100]
-    # mathematically; clamp the f32 rounding overshoot (~1e-5 ulps)
-    return jnp.where(good, jnp.clip(num / den, 0.0, 100.0), prior)
+    # the weighted average of occupancies in [0, 100] is in [0, 100];
+    # clamp the float32 rounding overshoot
+    out_ref[b, pl.ds(r0, TR), pl.ds(c0, TC)] = jnp.where(
+        good, jnp.clip(num / den, 0.0, 100.0), prior_at(P, P))
 
 
-def _kernel(R: int, res: float, chi2: float, rows: int, cols: int,
-            unroll, prior_pad_ref, sx_ref, sy_ref, rho_ref, psd_ref,
-            prior_ref, out_ref):
-    # Static row unroll under the same ceiling as the banded kernels: under
-    # vmap the refs become rank-3, where Mosaic cannot lower a *dynamic*
-    # sublane (dim 1) slice start — every offset must be a compile-time
-    # address; above the ceiling the aligned-group row loop takes over
-    # (see _accumulate's "aligned" mode).
-    num, den = _accumulate(R, res, chi2, rows, cols, prior_pad_ref,
-                           sx_ref[:], sy_ref[:], rho_ref[:],
-                           unroll_rows=unroll)
-    out_ref[:] = _finish(num, den, psd_ref[:], prior_ref[:])
-
-
-@functools.partial(jax.jit, static_argnums=(0, 4, 5))
-def _propagate(cp: CostmapParams, prior, xs, ys, faithful_rho: bool, interpret: bool, ego_yaw,
-               sigmas=None):
-    rows, cols = prior.shape
-    R = cp.window_radius
-    prior32 = prior.astype(jnp.float32)
-    sx, sy, rho = costmap_mod.cell_sigma_rho(
-        cp, xs, ys, ego_yaw, faithful=faithful_rho, sigmas=sigmas)
-    psd = (jnp.abs(rho) < 1.0).astype(jnp.float32)
-    rho = jnp.where(psd > 0, rho, 0.0).astype(jnp.float32)
-    if interpret:
-        unroll = False
-    elif (2 * R + 1) ** 2 <= _UNROLL_MAX_OFFSETS:
-        unroll = True
-    else:
-        unroll = "aligned"
-    extra = _ALIGN_EXTRA if unroll == "aligned" else 0
-    prior_pad = jnp.pad(prior32, ((R, R + extra), (R, R)))
-
-    kern = functools.partial(
-        _kernel, R, float(cp.resolution), float(cp.chisquare_val**2), rows,
-        cols, unroll,
-    )
-    flops = (2 * R + 1) ** 2 * rows * cols * 12
-    out = pl.pallas_call(
-        kern,
-        out_shape=jax.ShapeDtypeStruct((rows, cols), jnp.float32),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)] * 6,
-        out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
-        cost_estimate=pl.CostEstimate(
-            flops=flops,
-            bytes_accessed=4 * rows * cols * 7,
-            transcendentals=(2 * R + 1) ** 2 * rows * cols,
-        ),
-        # the statically-unrolled accumulation keeps many live slices; the
-        # default 16 MB scoped-vmem arena overflows under vmap (v5e has
-        # 128 MB of VMEM — give the spill arena room)
-        compiler_params=pltpu.CompilerParams(vmem_limit_bytes=96 * 1024 * 1024),
-        interpret=interpret,
-    )(prior_pad, sx.astype(jnp.float32), sy.astype(jnp.float32), rho, psd, prior32)
-    return out.astype(prior.dtype)
-
-
-def propagate_uncertainty_tpu(
-    cp: CostmapParams,
-    prior: jax.Array,
-    geom: gridmap.GridGeom,
-    ego_yaw: jax.Array,
-    faithful_rho: bool = False,
-    interpret=None,
-    sigmas=None,
-) -> jax.Array:
-    """Drop-in fast path for ``costmap.propagate_uncertainty_reference``.
-
-    ``interpret``: None (default) auto-selects the Pallas interpreter on the
-    CPU backend (tests / CLI runs off-chip), compiled on TPU; pass
-    True/False to force.
-    ``sigmas`` (3,) overrides the configured (sigma_x, sigma_y, sigma_theta)
-    as a TRACED value — the sigma-sweep compiles ONE program per algorithm
-    and feeds each grid point's sigmas as data; the static
-    ``cp.window_radius`` must be sized for the sweep's largest sigma
-    (``costmap.required_window_radius``)."""
-    if interpret is None:
-        interpret = jax.default_backend() == "cpu"
-    rows, cols = prior.shape
-    xs, ys = gridmap.cell_positions(geom, rows, cols)
-    return _propagate(cp, prior, xs, ys, faithful_rho, bool(interpret),
-                      ego_yaw, sigmas=sigmas)
-
-
-def _kernel_band(R: int, res: float, chi2: float, band_rows: int, cols: int,
-                 row0: int, total_rows: int, r_disc, unroll_rows,
-                 prior_pad_ref, sx_ref, sy_ref, rho_ref, psd_ref,
-                 prior_ref, out_ref):
-    """grid=(B,) program for one row band of one scenario.  The R-padded
-    prior is either shared across the grid (2-D ref — the Monte-Carlo
-    shared-prior case) or per-scenario (leading block dim of 1 — the
-    full-stack case where every scenario rebuilt its own vehicle map).
-    row0=0 with band_rows=total_rows is the plain full-map batched case."""
-    num, den = _accumulate(R, res, chi2, band_rows, cols, prior_pad_ref,
-                           sx_ref[0], sy_ref[0], rho_ref[0],
-                           row0=row0, total_rows=total_rows, r_disc=r_disc,
-                           unroll_rows=unroll_rows)
-    prior = prior_ref[0] if prior_ref.ndim == 3 else prior_ref[:]
-    out_ref[0] = _finish(num, den, psd_ref[0], prior)
-
-
-def _kernel_bands_fused(res: float, chi2: float, cols: int, total_rows: int,
-                        bands, disc_radii, pad: int, unrolls,
-                        prior_pad_ref, sx_ref, sy_ref, rho_ref, psd_ref,
-                        prior_ref, out_ref):
-    """grid=(B,): ALL row bands of one scenario in one program — one padded
-    prior (max band radius) instead of one per band, 1/len(bands) the grid
-    steps.  Field refs are full-map blocks; bands statically slice them."""
-    for (r0, br, Rb), r_disc, unroll in zip(bands, disc_radii, unrolls):
-        sl = lambda ref: ref[0, r0 : r0 + br, :]
-        num, den = _accumulate(
-            Rb, res, chi2, br, cols, prior_pad_ref,
-            sl(sx_ref), sl(sy_ref), sl(rho_ref),
-            row0=r0, total_rows=total_rows,
-            r_disc=None if r_disc is None else float(r_disc),
-            unroll_rows=unroll, pad_off=pad - Rb,
-        )
-        prior_b = (
-            prior_ref[0, r0 : r0 + br, :] if prior_ref.ndim == 3
-            else prior_ref[r0 : r0 + br, :]
-        )
-        out_ref[0, r0 : r0 + br, :] = _finish(num, den, sl(psd_ref), prior_b)
-
-
-class BandPlan(NamedTuple):
-    """Static row-band decomposition for batched propagation.
-
-    bands: ((row0, band_rows, radius), ...) contiguous from row 0;
-    sigma_hi: the (sigma_x, sigma_y, sigma_theta) upper bound the radii
-    cover — consumers cross-check their own sampling bound against it
-    (None when the plan is a plain full-map window);
-    x_range / y_range: the map-frame center interval the radii cover
-    (``make_band_plan`` returns degenerate (c, c) intervals for its fixed
-    center; None only for hand-built full-window plans, whose single
-    worst-case radius needs no center bookkeeping).  The caller must
-    guarantee every per-scenario center stays inside the intervals —
-    centers are traced at propagation time, so no runtime check is
-    possible (see ``costmap.corridor_center_bounds``).
-    """
-
-    bands: tuple
-    sigma_hi: tuple | None
-    x_range: tuple | None = None
-    y_range: tuple | None = None
-    # per-band float disc radii (cells) for the exact disc cut inside the
-    # accumulation (see _accumulate's r_disc); None = full square window
-    disc_radii: tuple | None = None
-
-
-def _prep_fields(cp: CostmapParams, geom, ego_yaw, sigmas, faithful_rho,
-                 rows: int, cols: int):
+def prep_fields(cp: CostmapParams, geom, ego_yaw, sigmas, rows: int, cols: int):
     """Per-scenario covariance fields (sx, sy, rho, psd), f32, (B, rows, cols).
 
     Any of (geom, ego_yaw, sigmas) may carry a leading scenario axis:
@@ -363,7 +140,7 @@ def _prep_fields(cp: CostmapParams, geom, ego_yaw, sigmas, faithful_rho,
         xs, ys = gridmap.cell_positions(geom1, rows, cols)
         sig = None if sg is None else (sg[0], sg[1], sg[2])
         sx, sy, rho = costmap_mod.cell_sigma_rho(
-            cp, xs, ys, yaw1, faithful=faithful_rho, sigmas=sig
+            cp, xs, ys, yaw1, sigmas=sig
         )
         psd = (jnp.abs(rho) < 1.0).astype(jnp.float32)
         rho = jnp.where(psd > 0, rho, 0.0).astype(jnp.float32)
@@ -374,305 +151,51 @@ def _prep_fields(cp: CostmapParams, geom, ego_yaw, sigmas, faithful_rho,
     )
 
 
-def propagate_uncertainty_tpu_batched(
+def propagate_batched(
     cp: CostmapParams,
     prior: jax.Array,
     geom: gridmap.GridGeom,
     ego_yaw: jax.Array,
-    sigmas: jax.Array,
-    faithful_rho: bool = False,
-    interpret=None,
+    sigmas=None,
+    band_plan=None,
+    interpret: bool = False,
 ) -> jax.Array:
-    """Per-scenario-covariance propagation over ONE shared prior: grid=(B,).
+    """Batched propagation: (B, rows, cols) uncertainty maps.
 
-    The Monte-Carlo layout (BASELINE configs 3/5): every scenario draws its
-    own (sigma_x, sigma_y, sigma_theta) and needs its own propagated map.
-    XLA's vmapped reference path lowers the shifted-window accumulation to
-    batched dynamic slices (gathers) and measures ~1.9 ms/map on v5e; this
-    kernel reruns the single-map program per grid step with the shared
-    R-padded prior resident in VMEM.
-
-    Single full-map band of ``cp.window_radius``; see
-    ``propagate_uncertainty_tpu_banded`` + ``make_band_plan`` for the
-    banded (2-4x cheaper, still exact) variant.
-
-    Args:
-      sigmas: (B, 3) per-scenario (sigma_x, sigma_y, sigma_theta).
-    Returns: (B, rows, cols) in the prior's dtype.
-
-    ``interpret=None`` auto-selects the Pallas interpreter on CPU.
-    """
-    rows = prior.shape[-2]
-    plan = BandPlan(((0, rows, cp.window_radius),), None)
-    return propagate_uncertainty_tpu_banded(
-        cp, prior, geom, ego_yaw, sigmas, plan,
-        faithful_rho=faithful_rho, interpret=interpret,
-    )
-
-
-def make_band_plan(cp: CostmapParams, rows: int, cols: int, center,
-                   sigma_hi, max_bands="auto") -> BandPlan:
-    """Static row bands with per-band window radii for banded propagation.
-
-    The fixed-window kernel sizes its (2R+1)^2 accumulation for the WORST
-    cell of the map (``required_window_radius``'s corner bound), but the
-    required 95%-ellipse radius grows with the per-cell lever arm |cell| —
-    near-ego rows need a fraction of the corner radius.  Splitting the
-    rows into contiguous bands whose radius is that band's own worst-row
-    bound cuts the accumulation FLOPs ~2-4x EXACTLY: a window that covers
-    every cell's 95% ellipse yields bit-identical results
-    (outside-ellipse offsets contribute w = 0).
-
-    Returns a hashable ``BandPlan`` carrying the sigma_hi bound it covers.
-    Must be built OUTSIDE jit (concrete center).
-    """
-    cx, cy = float(center[0]), float(center[1])
-    return make_band_plan_bounds(
-        cp, rows, cols, (cx, cx), (cy, cy), sigma_hi, max_bands=max_bands
-    )
-
-
-def make_band_plan_bounds(cp: CostmapParams, rows: int, cols: int,
-                          x_range, y_range, sigma_hi,
-                          max_bands="auto") -> BandPlan:
-    """``make_band_plan`` for an INTERVAL of map-frame centers.
-
-    The full-stack batched path gives every scenario its own vehicle-frame
-    geometry (the corridor-derived center moves with the route,
-    ``costmap.corridor_center_bounds``); band radii must cover the worst
-    center the batch can produce.  Per row band the lever arm is maximized
-    over center_x in ``x_range`` and center_y in ``y_range`` — still EXACT
-    for every scenario whose center stays inside the intervals (a window
-    covering the 95% ellipse is exact regardless of slack).
-
-    ``max_bands="auto"`` (round 5): prefer 8-ROW bands — each band's
-    (band_rows, cols) planes are then exactly one sublane group, which
-    measured ~7% faster than the old 4-band split at the full-stack
-    geometry (32.6-33.3 vs 35.3-35.4 ms over 3 reps, bit-identical;
-    scripts/profile_band_count.py — the walked cell-visit count saturates
-    at 4 bands, so this is a layout win, not a trip-count win).  Falls
-    back to 4 bands when any 8-row band would exceed the static-unroll
-    offset ceiling: the aligned-group mode's ~8-body-per-column loop
-    repeated for 19 bands would multiply Mosaic module size at the
-    high-sigma production-sweep windows.
-    """
-    import numpy as _np
-
-    res = cp.resolution
-    x_lo, x_hi = float(x_range[0]), float(x_range[1])
-    y_lo, y_hi = float(y_range[0]), float(y_range[1])
-    if x_lo > x_hi or y_lo > y_hi:
-        raise ValueError(f"empty center range {x_range} x {y_range}")
-    # row i cell x = center_x + off_i; worst |x| is at an interval endpoint
-    off = 0.5 * rows * res - 0.5 * res - res * _np.arange(rows)
-    max_x = _np.maximum(_np.abs(x_lo + off), _np.abs(x_hi + off))
-    # |y| is linear in center_y too: worst at an endpoint, + half extent
-    max_y = max(abs(y_lo), abs(y_hi)) + 0.5 * cols * res - 0.5 * res
-    lever = _np.hypot(max_x, max_y)
-    s_x, s_y, s_t = sigma_hi
-    need = _np.ceil(
-        cp.chisquare_val
-        * _np.sqrt(s_x * s_x + s_y * s_y + s_t * s_t * lever * lever)
-        / res
-    ).astype(int)
-    need = _np.maximum(need, 1)
-    # exact disc radius: |d| <= chi sqrt(lambda_max) with
-    # lambda_max <= max(s_x, s_y)^2 + s_t^2 lever^2 (diag + rank-1 split)
-    s_m = max(s_x, s_y)
-    disc = cp.chisquare_val * _np.sqrt(s_m * s_m + s_t * s_t * lever * lever) / res
-
-    def build(n_bands: int) -> BandPlan:
-        n_b = min(n_bands, rows)
-        bounds = _np.linspace(0, rows, n_b + 1).astype(int)
-        bands = []
-        radii = []
-        for i in range(n_b):
-            r0, r1 = int(bounds[i]), int(bounds[i + 1])
-            if r1 > r0:
-                bands.append((r0, r1 - r0, int(need[r0:r1].max())))
-                radii.append(float(disc[r0:r1].max()))
-        return BandPlan(
-            tuple(bands), (float(s_x), float(s_y), float(s_t)),
-            (x_lo, x_hi), (y_lo, y_hi), tuple(radii),
-        )
-
-    if max_bands == "auto":
-        plan8 = build(max(1, rows // 8))
-        if all(
-            (2 * R + 1) ** 2 <= _UNROLL_MAX_OFFSETS
-            for (_, _, R) in plan8.bands
-        ):
-            return plan8
-        return build(4)
-    return build(int(max_bands))
-
-
-def propagate_uncertainty_tpu_banded(
-    cp: CostmapParams,
-    prior: jax.Array,
-    geom: gridmap.GridGeom,
-    ego_yaw: jax.Array,
-    sigmas: jax.Array,
-    band_plan,
-    faithful_rho: bool = False,
-    interpret=None,
-    unroll_rows=None,
-    fuse_bands: bool = True,
-) -> jax.Array:
-    """Banded variant of ``propagate_uncertainty_tpu_batched``: one
-    pallas_call per row band, each with that band's own (smaller) window
-    radius from ``make_band_plan``.  Exact (not an approximation) as long
-    as the sampled sigmas stay within the plan's sigma_hi bound.
-
-    ``unroll_rows``: statically unroll the row-offset loop — every prior
-    window load becomes a compile-time VMEM address instead of one dynamic
-    sublane slice per offset, measured 5.3x faster at the full-stack
-    geometry (228 -> 43 ms at B=4096, R=7-8) for ~1s extra compile.
-    Default (None): on for compiled runs whenever the window holds at most
-    ``_UNROLL_MAX_OFFSETS`` offsets (compile time grows with window area);
-    off in interpret mode."""
-    if interpret is None:
-        interpret = jax.default_backend() == "cpu"
+    ``prior`` is shared (rows, cols) or per-scenario (B, rows, cols); any of
+    (geom, ego_yaw, sigmas (B, 3)) may carry the scenario axis (see
+    ``prep_fields``).  ``band_plan`` (``costmap.make_band_plan[_bounds]``)
+    sets the per-row-tile window; without one every tile uses
+    ``cp.window_radius``.  ``interpret=True`` runs the Pallas interpreter
+    (the CPU tests); otherwise the kernel compiles for the GPU through
+    Triton."""
     rows, cols = prior.shape[-2:]
-    bands = band_plan.bands if isinstance(band_plan, BandPlan) else tuple(band_plan)
-    disc_radii = (
-        band_plan.disc_radii if isinstance(band_plan, BandPlan) else None
-    ) or (None,) * len(bands)
-    covered = 0
-    for (r0, br, _) in bands:
-        if r0 != covered:
-            raise ValueError(f"band plan not contiguous at row {covered}: {bands}")
-        covered += br
+    if band_plan is not None:
+        costmap_mod.check_band_plan(band_plan, rows)
+    sx, sy, rho, psd = prep_fields(cp, geom, ego_yaw, sigmas, rows, cols)
+    B = sx.shape[0]
+    radius, disc2 = tile_tables(band_plan, rows, cp.window_radius)
+    P = int(radius.max())
+    rp_, cp_ = -(-rows // TR) * TR, -(-cols // TC) * TC
+    grow = lambda a, v: jnp.pad(
+        a, ((0, 0), (0, rp_ - rows), (0, cp_ - cols)), constant_values=v)
     prior_batched = prior.ndim == 3
-    rows_idx = 1 if prior_batched else 0
-    if covered != prior.shape[rows_idx]:
-        raise ValueError(
-            f"band plan covers {covered} rows but the prior has "
-            f"{prior.shape[rows_idx]} — stale plan for a different map shape"
-        )
-    prior32 = prior.astype(jnp.float32)
-    sxb, syb, rhob, psdb = _prep_fields(
-        cp, geom, ego_yaw, sigmas, faithful_rho, rows, cols
+    halo = ((P, P + rp_ - rows), (P, P + cp_ - cols))
+    prior_pad = jnp.pad(prior.astype(jnp.float32),
+                        (((0, 0),) if prior_batched else ()) + halo)
+
+    kern = functools.partial(
+        _kernel, float(cp.resolution), float(cp.chisquare_val ** 2), rows,
+        cols, P, prior_batched,
     )
-    B = sxb.shape[0]
-
-    def band_unroll_of(Rb):
-        if unroll_rows is not None:
-            return unroll_rows  # caller forces a mode (tests)
-        if interpret:
-            return False  # plain fori: fastest to trace in the interpreter
-        if (2 * Rb + 1) ** 2 <= _UNROLL_MAX_OFFSETS:
-            return True
-        # Oversized window: the plain dynamic-row fori cannot lower for
-        # batched (rank-3) refs (Mosaic needs provably 8-aligned dynamic
-        # sublane starts) and the static unroll would take unbounded
-        # compile time — use the aligned-group row loop (_accumulate's
-        # "aligned" mode): any radius, ~8-body module per column.
-        return "aligned"
-
-    if fuse_bands:
-        # one program per scenario covering every band: one max-radius
-        # padded prior (instead of one padded copy per band) and
-        # 1/len(bands) the grid dispatches
-        P = max(Rb for (_, _, Rb) in bands)
-        unrolls = tuple(band_unroll_of(Rb) for (_, _, Rb) in bands)
-        # the aligned-group row loop may physically read a few masked rows
-        # past the last window row — give it real (zero) storage
-        extra = _ALIGN_EXTRA if any(u == "aligned" for u in unrolls) else 0
-        if prior_batched:
-            prior_pad = jnp.pad(prior32, ((0, 0), (P, P + extra), (P, P)))
-        else:
-            prior_pad = jnp.pad(prior32, ((P, P + extra), (P, P)))
-        kern = functools.partial(
-            _kernel_bands_fused, float(cp.resolution),
-            float(cp.chisquare_val**2), cols, rows,
-            tuple(bands),
-            tuple(None if r is None else float(r) for r in disc_radii),
-            P, unrolls,
-        )
-        per_b = pl.BlockSpec((1, rows, cols), lambda b: (b, 0, 0),
-                             memory_space=pltpu.VMEM)
-        shared = lambda arr: pl.BlockSpec(
-            arr.shape, lambda b: (0,) * arr.ndim, memory_space=pltpu.VMEM
-        )
-        if prior_batched:
-            ppad_spec = pl.BlockSpec(
-                (1,) + prior_pad.shape[1:], lambda b: (b, 0, 0),
-                memory_space=pltpu.VMEM,
-            )
-            prior_spec = per_b
-        else:
-            ppad_spec = shared(prior_pad)
-            prior_spec = shared(prior32)
-        flops = sum(
-            B * (2 * Rb + 1) ** 2 * br * cols * 12 for (_, br, Rb) in bands
-        )
-        out = pl.pallas_call(
-            kern,
-            grid=(B,),
-            in_specs=[ppad_spec, per_b, per_b, per_b, per_b, prior_spec],
-            out_specs=per_b,
-            out_shape=jax.ShapeDtypeStruct((B, rows, cols), jnp.float32),
-            cost_estimate=pl.CostEstimate(
-                flops=flops,
-                bytes_accessed=4 * rows * cols * (5 * B + 2),
-                transcendentals=flops // 12,
-            ),
-            # large-radius (aligned-mode) windows stage bigger padded
-            # priors + rows+8 group loads; the default 16 MB scoped-vmem
-            # arena overflows (v5e has 128 MB) — same raise as _propagate
-            compiler_params=pltpu.CompilerParams(
-                vmem_limit_bytes=96 * 1024 * 1024),
-            interpret=interpret,
-        )(prior_pad, sxb, syb, rhob, psdb, prior32)
-        return out.astype(prior.dtype)
-
-    outs = []
-    for (r0, br, Rb), r_disc in zip(bands, disc_radii):
-        band_unroll = band_unroll_of(Rb)
-        extra = _ALIGN_EXTRA if band_unroll == "aligned" else 0
-        if prior_batched:
-            prior_pad = jnp.pad(prior32, ((0, 0), (Rb, Rb + extra), (Rb, Rb)))
-        else:
-            prior_pad = jnp.pad(prior32, ((Rb, Rb + extra), (Rb, Rb)))
-        kern = functools.partial(
-            _kernel_band, Rb, float(cp.resolution),
-            float(cp.chisquare_val**2), br, cols, r0, rows,
-            None if r_disc is None else float(r_disc), band_unroll,
-        )
-        per_b = pl.BlockSpec((1, br, cols), lambda b: (b, 0, 0),
-                             memory_space=pltpu.VMEM)
-        shared = lambda arr: pl.BlockSpec(
-            arr.shape, lambda b: (0,) * arr.ndim, memory_space=pltpu.VMEM
-        )
-        if prior_batched:
-            ppad_spec = pl.BlockSpec(
-                (1,) + prior_pad.shape[1:], lambda b: (b, 0, 0),
-                memory_space=pltpu.VMEM,
-            )
-            pband_spec = per_b
-            pband = prior32[:, r0 : r0 + br]
-        else:
-            ppad_spec = shared(prior_pad)
-            pband_spec = shared(prior32[r0 : r0 + br])
-            pband = prior32[r0 : r0 + br]
-        sl = lambda a: a[:, r0 : r0 + br]
-        out = pl.pallas_call(
-            kern,
-            grid=(B,),
-            in_specs=[ppad_spec, per_b, per_b, per_b, per_b, pband_spec],
-            out_specs=per_b,
-            out_shape=jax.ShapeDtypeStruct((B, br, cols), jnp.float32),
-            cost_estimate=pl.CostEstimate(
-                flops=B * (2 * Rb + 1) ** 2 * br * cols * 12,
-                bytes_accessed=4 * br * cols * (5 * B + 2),
-                transcendentals=B * (2 * Rb + 1) ** 2 * br * cols,
-            ),
-            compiler_params=pltpu.CompilerParams(
-                vmem_limit_bytes=96 * 1024 * 1024),
-            interpret=interpret,
-        )(prior_pad, sl(sxb), sl(syb), sl(rhob), sl(psdb), pband)
-        outs.append(out)
-    if len(outs) == 1:
-        return outs[0].astype(prior.dtype)
-    return jnp.concatenate(outs, axis=1).astype(prior.dtype)
+    out = pl.pallas_call(
+        kern,
+        grid=(B, rp_ // TR, cp_ // TC),
+        out_shape=jax.ShapeDtypeStruct((B, rp_, cp_), jnp.float32),
+        compiler_params=pltriton.CompilerParams(num_warps=4, num_stages=1),
+        interpret=interpret,
+        backend="triton",
+        name="cilqr_propagate_uncertainty",
+    )(jnp.asarray(radius), jnp.asarray(disc2), prior_pad,
+      grow(sx, 1.0), grow(sy, 1.0), grow(rho, 0.0), grow(psd, 0.0))
+    return out[:, :rows, :cols].astype(prior.dtype)

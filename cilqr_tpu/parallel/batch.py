@@ -1,14 +1,14 @@
 """Scenario batching & device-mesh sharding — the P8 axis.
 
 The reference has no ML-style parallelism to port (SURVEY.md §2.5): its
-"distributed backend" is five ROS processes on TCP.  The TPU-native scaling
-axis is *scenarios*: the whole solve is a pure function, so
+"distributed backend" is five ROS processes on TCP.  The scaling axis here
+is *scenarios*: the whole solve is a pure function, so
 
-  * on-chip batching   = ``vmap``   (one (B, ...) program on the VPU/MXU)
-  * multi-chip/host    = ``shard_map`` over a 1-D ``Mesh`` on the batch axis,
+  * on-device batching = ``vmap`` / ``solver_batched`` (one (B, ...) program)
+  * multi-device       = ``shard_map`` over a 1-D ``Mesh`` on the batch axis,
     with plan/costmap replicated and per-scenario metrics reduced via
-    ``psum`` — collectives ride ICI, DCN only sees the initial scatter and
-    final gather (jax.make_array_from_process_local_data on multi-host).
+    ``psum`` — the only collective; the scatter and gather move inputs and
+    results (jax.make_array_from_process_local_data on multi-host).
 """
 
 from __future__ import annotations
@@ -59,9 +59,11 @@ def batched_solve(p: SolverParams, plan_xy, plan_n, egos, U_warm, obstacles=None
 def _metrics_local(p: SolverParams, res: solver.SolveResult, axis: Optional[str]) -> BatchMetrics:
     B = res.J.shape[0]
     # early stop + lambda still in range <=> tolerance convergence; a
-    # lambda-abort lane (iLQR.cpp:233-236) ends with lamb > lamb_max
+    # lambda-abort lane (iLQR.cpp:233-236) ends with lamb > lamb_max, a
+    # failed backward pass (iLQR.cpp:159-162) with ``failed``
     conv = (
         (res.iterations < p.max_iterations) & (res.lamb <= p.lamb_max)
+        & ~res.failed
     ).astype(res.J.dtype)
     sums = jnp.stack([
         jnp.sum(res.J),
@@ -83,14 +85,12 @@ def solve_and_reduce(p: SolverParams, plan_xy, plan_n, egos, U_warm,
     return res, _metrics_local(p, res, axis)
 
 
-def make_sharded_solver(p: SolverParams, mesh: Mesh, obstacles=None, unc_map=None,
-                        fused: bool = False):
-    """Build a jitted multi-chip solver: scenario axis sharded over the mesh,
-    everything else replicated, metrics reduced with ICI collectives.
+def make_sharded_solver(p: SolverParams, mesh: Mesh, obstacles=None, unc_map=None):
+    """Build a jitted multi-device solver: scenario axis sharded over the
+    mesh, everything else replicated, metrics reduced with one collective.
 
-    ``fused=True`` routes each shard through the Pallas fast path
-    (``models.solver_batched`` — per-shard batch must be a multiple of 1024);
-    default uses the reference vmap path.
+    Each shard runs ``solver_batched.run_steps_batched``, which picks its
+    route (XLA or the GPU kernel) from the backend and the shard's input.
 
     Returns ``fn(plan_xy, plan_n, egos, U_warm) -> (SolveResult, BatchMetrics)``
     with ``egos/U_warm`` sharded on their leading axis and the result
@@ -108,18 +108,12 @@ def make_sharded_solver(p: SolverParams, mesh: Mesh, obstacles=None, unc_map=Non
         check_vma=False,
     )
     def shard_fn(plan_xy, plan_n, egos, U_warm):
-        if fused:
-            from cilqr_tpu.models import solver_batched
+        from cilqr_tpu.models import solver_batched
 
-            res = solver_batched.run_steps_batched(
-                p, plan_xy, plan_n, egos, U_warm, obstacles, unc_map
-            )
-            metrics = _metrics_local(p, res, BATCH_AXIS)
-        else:
-            res, metrics = solve_and_reduce(
-                p, plan_xy, plan_n, egos, U_warm, obstacles, unc_map, axis=BATCH_AXIS
-            )
-        return res, metrics
+        res = solver_batched.run_steps_batched(
+            p, plan_xy, plan_n, egos, U_warm, obstacles, unc_map
+        )
+        return res, _metrics_local(p, res, BATCH_AXIS)
 
     def fn(plan_xy, plan_n, egos, U_warm):
         if egos.shape[0] % n_dev:
@@ -139,16 +133,15 @@ def make_sharded_full_stack(
     obs_size=None,
     obs_mask=None,
     band_plan=None,
-    global_res=None,
     percept=None,
 ):
     """Scenario-sharded COMPLETE pipeline: per-cycle per-scenario costmap
-    rebuild (batched Pallas propagation + prior resample) feeding the hybrid
-    mega solver, with the perception channel optionally on — i.e.
+    rebuild (batched propagation + prior resample) feeding the batched
+    solver, with the perception channel optionally on — i.e.
     ``plant.closed_loop_full_stack_batched`` per shard.  World inputs
     (global map, route) are replicated; only the scenario axis is sharded,
-    so the per-cycle collectives are exactly one psum for the summary
-    metrics — everything else rides VMEM/HBM chip-locally.
+    so the only collective is one psum for the summary metrics — everything
+    else stays on its own device.
 
     Returns ``fn(global_map, global_geom, plan_xy, plan_n, x0s, key) ->
     (final_states sharded, record sharded, summary replicated)`` where
@@ -177,7 +170,7 @@ def make_sharded_full_stack(
             p, cp, NoiseParams(), global_map, global_geom, plan_xy, plan_n,
             x0s, key, n_cycles, obstacles=obstacles,
             obs_xyyaw=obs_xyyaw, obs_size=obs_size, obs_mask=obs_mask,
-            band_plan=band_plan, global_res=global_res, percept=percept,
+            band_plan=band_plan, percept=percept,
         )
         Bl = x0s.shape[0]
         sums = jax.lax.psum(

@@ -15,8 +15,8 @@ driver is the framework equivalent at pod scale:
     bit-identical results to an uninterrupted run;
   * per-round result rows stream to a host-local **experiment log shard**
     (`shard_<process>.log`, the native CRC-framed format of
-    utils/explog) so multi-host runs never funnel raw trajectories over
-    DCN; ``merge_analysis`` folds all shards into one metrics table.
+    utils/explog) so multi-host runs never funnel raw trajectories across
+    hosts; ``merge_analysis`` folds all shards into one metrics table.
 """
 
 from __future__ import annotations

@@ -6,10 +6,10 @@ BASELINE.json configs 3 and 5:
       draws its own localization sigma (sigma_x, sigma_y, sigma_theta) and
       ego-pose noise, propagates its own uncertainty costmap, and solves.
   (5) 16k-scenario Monte-Carlo with the costmap transformation sharded over
-      a multi-host mesh: the scenario axis is the only sharded axis, so the
-      propagation + solve graph is fully replicated per chip and the only
-      collective traffic is the psum metric reduction (ICI), with DCN
-      touched only by the initial scatter / final gather
+      a device mesh: the scenario axis is the only sharded axis, so the
+      propagation + solve graph is fully replicated per device and the only
+      collective is the psum metric reduction; across hosts only the
+      initial scatter / final gather move data
       (see cilqr_tpu/parallel/multihost.py).
 
 The reference analog is running the CARLA experiment N times while turning
@@ -107,6 +107,28 @@ def mc_solve_one(
     return solver.run_step(p, plan_xy, plan_n, ego, U0, obstacles, umap)
 
 
+def monte_carlo_reference(
+    p: SolverParams,
+    cp: CostmapParams,
+    prior: jax.Array,
+    geom,
+    origin_xy,
+    origin_yaw,
+    plan_xy,
+    plan_n,
+    samples: MCSample,
+    obstacles=None,
+):
+    """The semantics oracle of ``monte_carlo``: vmap of ``mc_solve_one``
+    (float64 propagation and solve when the inputs are float64)."""
+    U0 = solver.initial_controls(p, dtype=samples.egos.dtype)
+    fn = lambda s, e: mc_solve_one(
+        p, cp, prior, geom, origin_xy, origin_yaw, plan_xy, plan_n, s, e,
+        U0, obstacles
+    )
+    return jax.vmap(fn)(samples.sigmas, samples.egos)
+
+
 def monte_carlo(
     p: SolverParams,
     cp: CostmapParams,
@@ -119,28 +141,19 @@ def monte_carlo(
     samples: MCSample,
     obstacles=None,
     sigma_hi=DEFAULT_SIGMA_HI,
-    impl: str = "auto",
     band_plan=None,
 ):
-    """Config-3 batch on one chip: per-scenario costmap + solve.
+    """Config-3 batch on one device: per-scenario costmap + solve.
 
-    impl:
-      "fast" — batched Pallas propagation kernel (grid over scenarios,
-        ops/uncertainty_pallas.propagate_uncertainty_tpu_batched) + the
-        two-phase batched solver with per-scenario uncertainty maps
-        (world_batched).  ~1000x the vmap path on v5e (the vmapped
-        reference propagation lowers to batched gathers and the vmapped
-        solve to sequential micro-ops).  B is padded to the 1024-lane
-        kernel tile internally.
-      "reference" — vmap of ``mc_solve_one`` (the semantics oracle; float64
-        propagation when the inputs are float64).
-      "auto" (default) — "fast" when the batch is at least 256 (so tile
-        padding stays amortized), else "reference".
+    The batched propagation (``costmap.propagate_uncertainty_batched``)
+    gives every scenario its own map under its sampled covariance; the
+    batched solver (``solver_batched.run_steps_batched``) then plans every
+    scenario against its own map.  Each picks its route (XLA or GPU
+    kernel) from the backend and the input.
 
     band_plan: optional static row-band plan from
-    ``uncertainty_pallas.make_band_plan`` (built OUTSIDE jit with the same
-    sigma_hi bound) — cuts the fast path's propagation FLOPs ~2-4x exactly
-    by shrinking the window on near-ego rows.
+    ``costmap.make_band_plan`` (built OUTSIDE jit with the same sigma_hi
+    bound) — the GPU kernel's per-band windows.
 
     ``sigma_hi`` must bound the sampled sigmas: the propagation window is
     auto-enlarged to cover its 95% ellipse (see ensure_window_covers).
@@ -156,19 +169,9 @@ def monte_carlo(
             jax.errors.ConcretizationTypeError):
         pass  # traced center: caller pre-sized cp
     B = samples.egos.shape[0]
-    if impl == "auto":
-        impl = "fast" if B >= 256 else "reference"
     U0 = solver.initial_controls(p, dtype=samples.egos.dtype)
 
-    if impl == "reference":
-        fn = lambda s, e: mc_solve_one(
-            p, cp, prior, geom, origin_xy, origin_yaw, plan_xy, plan_n, s, e,
-            U0, obstacles
-        )
-        return jax.vmap(fn)(samples.sigmas, samples.egos)
-
     from cilqr_tpu.models import solver_batched
-    from cilqr_tpu.ops import uncertainty_pallas
 
     if band_plan is not None:
         plan_hi = getattr(band_plan, "sigma_hi", None)
@@ -180,13 +183,9 @@ def monte_carlo(
                 f"{tuple(sigma_hi)} — rebuild the plan with the larger bound "
                 "(a too-small band radius silently truncates the 95% ellipse)"
             )
-        unc_vals = uncertainty_pallas.propagate_uncertainty_tpu_banded(
-            cp, prior, geom, origin_yaw, samples.sigmas, band_plan
-        )
-    else:
-        unc_vals = uncertainty_pallas.propagate_uncertainty_tpu_batched(
-            cp, prior, geom, origin_yaw, samples.sigmas
-        )
+    unc_vals = costmap_mod.propagate_uncertainty_batched(
+        cp, prior, geom, origin_yaw, samples.sigmas, band_plan
+    )
     bc = lambda a: jnp.broadcast_to(
         jnp.asarray(a), (B,) + jnp.shape(jnp.asarray(a))
     )
@@ -194,11 +193,8 @@ def monte_carlo(
         unc_vals, jax.tree.map(bc, geom), bc(origin_xy), bc(origin_yaw)
     )
     U0s = jnp.broadcast_to(U0, (B,) + U0.shape)
-    # hybrid mega solve: obstacles stay shared in-kernel, the per-scenario
-    # maps are sampled by XLA at each iteration's trajectory
     return solver_batched.run_steps_batched(
         p, plan_xy, plan_n, samples.egos, U0s, obstacles, umaps,
-        impl="mega", world_batched=True,
     )
 
 
@@ -210,7 +206,6 @@ def make_sharded_monte_carlo(
     map_shape=None,
     map_center=None,
     sigma_hi=DEFAULT_SIGMA_HI,
-    impl: str = "auto",
 ):
     """Config-5 builder: scenario-sharded Monte-Carlo with per-scenario
     costmap propagation, psum metrics.  Returns (jitted fn, batch sharding).
@@ -226,9 +221,7 @@ def make_sharded_monte_carlo(
     band_plan = None
     if map_shape is not None and map_center is not None:
         cp = ensure_window_covers(cp, map_shape[0], map_shape[1], map_center, sigma_hi)
-        from cilqr_tpu.ops import uncertainty_pallas
-
-        band_plan = uncertainty_pallas.make_band_plan(
+        band_plan = costmap_mod.make_band_plan(
             cp, map_shape[0], map_shape[1], map_center, sigma_hi
         )
     batch_spec = P(BATCH_AXIS)
@@ -244,7 +237,7 @@ def make_sharded_monte_carlo(
     def shard_fn(prior, geom, origin_xy, origin_yaw, plan_xy, plan_n, sigmas, egos):
         res = monte_carlo(
             p, cp, prior, geom, origin_xy, origin_yaw, plan_xy, plan_n,
-            MCSample(sigmas, egos), obstacles, impl=impl,
+            MCSample(sigmas, egos), obstacles, sigma_hi=sigma_hi,
             band_plan=band_plan,
         )
         return res, _metrics_local(p, res, BATCH_AXIS)

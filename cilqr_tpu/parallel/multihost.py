@@ -1,16 +1,19 @@
-"""Multi-host launch + data plumbing for TPU pod slices.
+"""Multi-process launch + data plumbing for a scenario mesh across hosts.
 
 The reference's "distribution" is five OS processes exchanging ROS topics on
-one machine (SURVEY.md §2.5 P1).  At pod scale this framework runs one SPMD
-program per host:
+one machine (SURVEY.md §2.5 P1).  Across hosts this framework runs one SPMD
+program per process:
 
   * `initialize()` wires `jax.distributed` (coordinator address/process id
-    from env or args — the standard TPU pod bootstrap).
-  * `global_mesh()` builds the scenario mesh over *all* devices of the
-    slice; each host only ever materializes its local shard.
+    from env or args; with no cluster environment they must be given).
+  * `global_mesh()` builds the scenario mesh over *all* devices of all
+    processes; each process only ever materializes its local shard.
   * `scatter_local()` wraps `jax.make_array_from_process_local_data`: every
-    host contributes its local slice of the global scenario batch — the only
-    DCN traffic besides the final gather.
+    process contributes its local slice of the global scenario batch — the
+    only cross-host traffic besides the final gather.
+
+Tested with several CPU processes (tests/test_multihost.py); running
+several GPU hosts is not something this repository has done.
 
 Single-host single-process remains a degenerate case of the same code path,
 which is how it is exercised in CI (tests/test_parallel.py) and by
@@ -32,11 +35,11 @@ from cilqr_tpu.parallel.batch import BATCH_AXIS
 def initialize(coordinator_address: Optional[str] = None,
                num_processes: Optional[int] = None,
                process_id: Optional[int] = None) -> None:
-    """Bring up jax.distributed for a multi-host pod slice.
+    """Bring up jax.distributed for a multi-process run.
 
-    No-ops for single-process runs (num_processes in {None on TPU metadata,
-    1}).  Arguments default from the standard env (JAX_COORDINATOR_ADDRESS,
-    JAX_NUM_PROCESSES, JAX_PROCESS_ID) or TPU metadata autodetection.
+    No-ops for single-process runs (num_processes None or 1, and no
+    coordinator address).  Arguments default from the standard env
+    (JAX_COORDINATOR_ADDRESS, JAX_NUM_PROCESSES, JAX_PROCESS_ID).
     """
     addr = coordinator_address or os.environ.get("JAX_COORDINATOR_ADDRESS")
     npr = num_processes if num_processes is not None else _env_int("JAX_NUM_PROCESSES")
@@ -79,8 +82,8 @@ def put_global(sharding: NamedSharding, global_array: np.ndarray) -> jax.Array:
 
     Single-process: plain ``device_put``.  Multi-process: every process holds
     the identical global array (deterministic sampling from a shared key), so
-    each contributes its own contiguous leading-axis block — no DCN payload
-    moves, exactly like ``scatter_local`` but sliced from replicated host
+    each contributes its own contiguous leading-axis block — no cross-host
+    payload moves, exactly like ``scatter_local`` but sliced from replicated host
     data.  The 1-D scenario mesh orders devices process-major, so process
     ``p`` owns rows ``[p*b, (p+1)*b)``.
     """

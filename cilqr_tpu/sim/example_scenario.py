@@ -35,3 +35,16 @@ def example_scenario(p, dtype):
         dtype=dtype,
     )
     return plan, n, ego, U0, obstacles, unc
+
+
+def example_global_map(dtype, seed: int = 0):
+    """The full-stack benchmark's global prior: a 256 x 256 occupancy map
+    (uniform in [0, 100]) at 0.5 m covering the example lane.  Returns
+    (global_map, global_geom)."""
+    import jax.numpy as jnp
+
+    from cilqr_tpu.ops import gridmap
+
+    gmap = np.random.default_rng(seed).uniform(0.0, 100.0, (256, 256))
+    geom = gridmap.make_geom([110.0, -300.0], 0.5, 256, 256, dtype=dtype)
+    return jnp.asarray(gmap, dtype), geom

@@ -156,7 +156,6 @@ def closed_loop_full_stack(
     obs_xyyaw: Optional[jax.Array] = None,
     obs_size: Optional[jax.Array] = None,
     obs_mask: Optional[jax.Array] = None,
-    use_pallas: bool = False,
     plan_step=None,
     percept=None,
     costmap_sigmas=None,
@@ -252,7 +251,6 @@ def closed_loop_full_stack(
         cm = costmap_mod.build_local_costmap(
             cp, global_map, global_geom, plan_xy, plan_n, state,
             obs_now[:, :2], sizes, obs_now[:, 2], cm_raster_mask,
-            use_pallas=use_pallas,
             tracked_box=tracked_box, tracked_valid=tracked_valid,
             sigmas=costmap_sigmas,
         )
@@ -306,13 +304,13 @@ def closed_loop_batched(
     obs_size: Optional[jax.Array] = None,
     obs_mask: Optional[jax.Array] = None,
 ):
-    """Monte-Carlo closed loop on the fused fast path: every plan->act cycle
-    solves the whole (B, ...) scenario batch through the Pallas Riccati
-    kernel (B must be a multiple of ``riccati_pallas.TILE``).
+    """Monte-Carlo closed loop: every plan->act cycle solves the whole
+    (B, ...) scenario batch through ``solver_batched.run_steps_batched``
+    (any B; the route follows the backend and the input).
 
     Returns (final states (B, 4), per-cycle record pytree with leading axis
     (n_cycles, B, ...)).  This is the production serving shape: thousands of
-    vehicles replanning in lockstep on one chip.
+    vehicles replanning in lockstep on one device.
     """
     from cilqr_tpu.models import solver_batched
 
@@ -337,16 +335,18 @@ def closed_loop_batched(
         else:
             hits = jnp.zeros((B,), bool)
         nxt = dynamics.step(p, states, res.U[:, 0])
-        rec = (states, noisy, res.J, res.iterations, hits)
+        rec = (states, noisy, res.J, res.iterations, res.failed, hits)
         return (nxt, res.U), rec
 
     keys = jax.random.split(key, n_cycles)
-    (xf, _), (sp, npos, J, iters, hit) = jax.lax.scan(cycle, (x0s, U0), keys)
+    (xf, _), (sp, npos, J, iters, failed, hit) = jax.lax.scan(
+        cycle, (x0s, U0), keys)
     return xf, {
         "start_pos": sp,
         "noisy_pos": npos,
         "J": J,
         "iterations": iters,
+        "failed": failed,
         "collided": hit,
     }
 
@@ -367,18 +367,15 @@ def closed_loop_full_stack_batched(
     obs_size: Optional[jax.Array] = None,
     obs_mask: Optional[jax.Array] = None,
     band_plan=None,
-    global_res: Optional[float] = None,
     percept=None,
     costmap_sigmas=None,
     plan_step_batched=None,
-    use_pallas: bool = True,
     per_run_keys=None,
 ):
     """The COMPLETE reference pipeline, batched: every plan->act cycle,
     every scenario rebuilds its own vehicle-frame uncertainty costmap from
-    the shared global prior (batched Pallas propagation, per-scenario
-    frames) and replans through the hybrid mega solver (per-scenario maps
-    sampled by XLA each LM iteration).
+    the shared global prior (batched propagation, per-scenario frames) and
+    replans against its own map through ``solver_batched.run_steps_batched``.
 
     ``percept`` activates the per-scenario camera -> KF ->
     ``semantic_lidar_map`` channel exactly as in ``closed_loop_full_stack``
@@ -386,16 +383,14 @@ def closed_loop_full_stack_batched(
     camera-only).
 
     Same information flow as ``closed_loop_full_stack`` per scenario
-    (costmap at the true pose, solver at the noisy pose); B must make the
-    batch a multiple of the kernel tile after padding (any B works, padding
-    lanes are solved and discarded).  This is the scaled replacement for N
-    parallel CARLA+ROS stacks: thousands of vehicles, each with its own
-    map engine and planner node, in one jitted scan on one chip.
+    (costmap at the true pose, solver at the noisy pose), for any B.  This
+    is the scaled replacement for N parallel CARLA+ROS stacks: thousands of
+    vehicles, each with its own map engine and planner node, in one jitted
+    scan on one device.
 
     ``plan_step_batched(noisy_states, U_warm, umaps) -> batched
     SolveResult-like`` swaps in a different batched planner (e.g. a
-    vmapped Frenet/CCNMPC step, or a vmapped CILQR solve when the batch is
-    far below the mega-kernel tile); default is the hybrid mega solver.
+    vmapped Frenet/CCNMPC step); default is the batched CILQR solver.
 
     ``per_run_keys`` (B,) makes the noise/camera streams BIT-IDENTICAL to
     ``vmap(closed_loop*)`` over those keys (each lane's cycle keys are
@@ -470,9 +465,9 @@ def closed_loop_full_stack_batched(
         cms = costmap_mod.build_local_costmap_batched(
             cp, global_map, global_geom, plan_xy, plan_n, states,
             obs_now[:, :2], sizes, obs_now[:, 2], cm_raster_mask,
-            band_plan=band_plan, global_res=global_res,
+            band_plan=band_plan,
             tracked_boxes=boxes, tracked_valid=valid,
-            sigmas=costmap_sigmas, use_pallas=use_pallas,
+            sigmas=costmap_sigmas,
         )
         umaps = unc_mod.UncertaintyMap(
             cms.uncertainty_map, cms.geom, cms.origin_xy, cms.origin_yaw
@@ -483,7 +478,6 @@ def closed_loop_full_stack_batched(
         else:
             res = solver_batched.run_steps_batched(
                 p, plan_xy, plan_n, noisy, U_warm, obstacles, umaps,
-                impl="mega", world_batched=True,
             )
         if M:
             hits = jax.vmap(
@@ -500,7 +494,9 @@ def closed_loop_full_stack_batched(
             "collided": hits,
             "uncertainty_max": jnp.max(cms.uncertainty_map, axis=(1, 2)),
         }
-        # the mega path solves in f32; keep the warm-start carry in the
+        if plan_step_batched is None:
+            rec["failed"] = res.failed
+        # the GPU kernel solves in f32; keep the warm-start carry in the
         # caller's dtype so the scan carry is type-stable
         if percept is None:
             return (nxt.astype(dtype), res.U.astype(dtype)), rec

@@ -97,7 +97,7 @@ def make_plan_step(
     SolveResult-like``.
 
     One closed-loop/runner code path drives every algorithm in
-    ``ALGORITHMS`` — the TPU-native analog of swapping which planner node is
+    ``ALGORITHMS`` — the analog of swapping which planner node is
     launched (SURVEY.md §3.4) while CARLA/vehiclepub stay fixed.  The
     optional third argument carries a per-cycle uncertainty costmap (the
     full-stack loop rebuilds it every tick); algorithms that do not consume
@@ -187,7 +187,6 @@ def run_experiment_batch(
     costmap_params=None,
     global_map=None,
     global_geom=None,
-    use_pallas: bool = False,
 ):
     """The reference's 10-run experiment batch (batch_dataprocess.py:386-447,
     471) as ONE device program: ``n_runs`` independently-seeded closed-loop
@@ -221,7 +220,7 @@ def run_experiment_batch(
                 p, costmap_params, noise, global_map, global_geom, plan, n,
                 x0j, key, n_cycles, obstacles=ob,
                 obs_xyyaw=obs_xyyaw, obs_size=obs_size, obs_mask=obs_mask,
-                use_pallas=use_pallas, plan_step=plan_step,
+                plan_step=plan_step,
             )
         return plant.closed_loop(
             p, noise, plan, n, x0j, key, n_cycles,
@@ -262,7 +261,6 @@ def run_algorithm_comparison(
     costmap_params=None,
     global_map=None,
     global_geom=None,
-    use_pallas: bool = False,
 ):
     """The full batch_dataprocess.py comparison (one sheet per algorithm,
     :459-502) in one call: every algorithm runs the same scenario with the
@@ -281,7 +279,7 @@ def run_algorithm_comparison(
             n_runs=n_runs, seed=seed, dtype=dtype,
             algorithm=algo, unc_map=unc_map,
             costmap_params=costmap_params, global_map=global_map,
-            global_geom=global_geom, use_pallas=use_pallas,
+            global_geom=global_geom,
         )
         results[algo] = (out, rows)
         all_rows.extend(rows)
@@ -303,7 +301,6 @@ def run_experiment(
     costmap_params=None,
     global_map=None,
     global_geom=None,
-    use_pallas: bool = False,
 ):
     """Closed-loop run with per-cycle wall-clock planning times.
 
@@ -343,7 +340,6 @@ def run_experiment(
             cm = costmap_mod.build_local_costmap(
                 costmap_params, global_map, global_geom, plan, n, state,
                 obs_xyyaw[:, :2], sizes, obs_xyyaw[:, 2], obs_mask,
-                use_pallas=use_pallas,
             )
             return unc_mod.UncertaintyMap(
                 cm.uncertainty_map, cm.geom, cm.origin_xy, cm.origin_yaw)

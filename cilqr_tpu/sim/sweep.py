@@ -20,27 +20,10 @@ algorithm (window radius bucketed to the sweep's largest sigma), then every
 grid point is a data-only dispatch.  A 10-sigma x 6-algorithm production
 grid compiles 6 programs, not 60.
 
-Propagation-path choice: at serving sigmas (<= the Experiment.launch
-0.16/0.017 scale) the banded Pallas kernel is the fast path
-(use_pallas=True).  HIGH-sigma windows above the static-unroll ceiling
-route through the kernel's aligned-group row loop (any radius — ~65 s
-isolated-kernel compile at the worst production band, ~17 min embedded in
-a full closed-loop module, vs an unbounded unrolled compile);
-the published offline tables use ``use_pallas=False`` (the CLI `sweep
---no-pallas`) — the XLA fori propagation compiles instantly, runs the
-whole 5-sigma x 6-algorithm production grid in ~9 min on one v5e chip,
-and pins the exact summation order the tables were produced with.  Both
-paths are numerically locked (bit-identity tests in
-test_uncertainty_pallas.py).
-
-Round 4 (VERDICT r3 #5): with the persistent compilation cache
-(``__main__._enable_compilation_cache``) the Pallas path's compile cliff
-is a one-time cost — the production map-consumer sweep (cilqr +
-frenet_propagation, 5 sigmas, n=10) measures **38 min cold / 4.5 min
-warm**, fully deterministic across reruns (warm==cold byte-identical),
-and matches the published XLA tables on every collision count with
-<=3rd-decimal metric drift from the differing summation order
-(``docs/sweep_r4_pallas`` vs ``docs/sweep_r3``).
+Propagation route: map-consuming cells run the batched full stack, whose
+propagation takes the GPU kernel's banded windows (a band plan sized for
+every corridor center the route can produce at the bucketed sigmas) on a
+GPU, and the full-window XLA propagation elsewhere; both are exact.
 
 Outputs per (sigma, algorithm): collision-run count, min wall clearance,
 min obstacle distance, mean speed — the batch_dataprocess.py metric set
@@ -78,8 +61,8 @@ def matched_costmap_params(
 ) -> CostmapParams:
     """Costmap propagation sigmas matched to the injected noise, with the
     fixed window radius sized to cover the worst-case 95% ellipse (the
-    dynamic EllipseIterator needs no such choice; the static-window TPU
-    kernel does — ops/costmap.required_window_radius)."""
+    dynamic EllipseIterator needs no such choice; the static window
+    does — ops/costmap.required_window_radius)."""
     from cilqr_tpu.ops import costmap as costmap_mod
 
     cp = dataclasses.replace(
@@ -133,7 +116,6 @@ def make_cell_fn(
     n_runs: int,
     global_map,
     global_geom,
-    use_pallas: bool,
     dtype,
     nrb_params=None,
 ):
@@ -157,23 +139,15 @@ def make_cell_fn(
         nrb_params = runner.nrb_params_for_scenario(p, scenario)
 
     band_plan = None
-    g_res = None
-    if consumes_map and use_pallas:
-        # banded disc-cut propagation + window-gather resample over the RUN
-        # axis: the production-resolution (152x104@0.2) sweep is 3-10x the
-        # full-window vmapped form.  Bands sized for every corridor center
-        # the route can produce at the bucketed (largest) sigmas.
+    if consumes_map:
+        # bands sized for every corridor center the route can produce at
+        # the bucketed (largest) sigmas
         from cilqr_tpu.ops import costmap as costmap_mod
-        from cilqr_tpu.ops import sample_pallas, uncertainty_pallas
 
         xr, yr = costmap_mod.corridor_center_bounds(cp, plan, n)
-        band_plan = uncertainty_pallas.make_band_plan_bounds(
+        band_plan = costmap_mod.make_band_plan_bounds(
             cp, cp.rows, cp.cols, xr, yr,
             (cp.sigma_x, cp.sigma_y, cp.sigma_theta))
-        gr = float(np.asarray(global_geom.resolution))
-        if sample_pallas.supports(cp.rows, cp.cols, cp.resolution, gr,
-                                  global_map.shape[0], global_map.shape[1]):
-            g_res = gr
 
     def cell(s_xy, s_th, key):
         noise = NoiseParams(s_xy, s_xy, s_th)
@@ -192,8 +166,7 @@ def make_cell_fn(
                 p, cp, noise, global_map, global_geom, plan, n,
                 x0s, key, n_cycles, obstacles=ob,
                 obs_xyyaw=obs_xyyaw, obs_size=obs_size, obs_mask=obs_mask,
-                band_plan=band_plan, global_res=g_res,
-                costmap_sigmas=sig3, use_pallas=use_pallas,
+                band_plan=band_plan, costmap_sigmas=sig3,
                 plan_step_batched=jax.vmap(plan_step),
                 per_run_keys=run_keys,
             )
@@ -224,7 +197,6 @@ def run_sigma_sweep(
     n_cycles: int = 160,
     seed: int = 0,
     sigma_theta_ratio: float = 0.017 / 0.16,
-    use_pallas: bool = True,
     dtype=None,
     plan=None,
     nrb_params=None,
@@ -279,7 +251,7 @@ def run_sigma_sweep(
     for algo in algorithms:
         fn = make_cell_fn(
             algo, p, cp_max, sc, planj, n, x0, n_cycles, n_runs,
-            global_map, global_geom, use_pallas, dtype,
+            global_map, global_geom, dtype,
             nrb_params=nrb_params)
         for s_xy in sigmas_xy:
             s_th = s_xy * sigma_theta_ratio

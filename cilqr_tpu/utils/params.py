@@ -1,4 +1,4 @@
-"""Configuration pytrees for the TPU-native CILQR engine.
+"""Configuration pytrees for the CILQR engine.
 
 One frozen, hashable dataclass replaces the reference's three uncoordinated
 config layers (hardcoded ``Parameters`` defaults at
@@ -90,7 +90,7 @@ class SolverParams:
     lamb_max: float = 10000.0
     lamb_init: float = 1.0
 
-    # --- TPU-framework-only static shape knobs (no reference analog; the
+    # --- static shape knobs of this framework (no reference analog; the
     # reference used dynamic Eigen shapes, XLA needs static ones) ---
     max_global_plan_points: int = 512   # padded global-plan length
     max_obstacles: int = 8              # padded obstacle count
@@ -105,9 +105,9 @@ class SolverParams:
     # over-weight the final waypoint.  Off by default (benign divergence
     # only in the final metres of the route).
     exact_end_shrink: bool = False
-    # lax.scan unroll factor for the Riccati/rollout scans (measured neutral
-    # on v5e at B=1024 — kept for experimentation; the real fast path is the
-    # fused Pallas backward kernel in ops/riccati_pallas.py)
+    # lax.scan unroll factor for the Riccati/rollout scans of the XLA route
+    # (kept for experimentation; the batched GPU route is the fused kernel
+    # in ops/lm_pallas.py)
     scan_unroll: int = 1
     # Backward-pass implementation: "seq" = reference-faithful sequential
     # recursion (iLQR.cpp:133-191); "pscan" = O(log N)-depth associative-scan
@@ -167,7 +167,7 @@ class CostmapParams:
     chisquare_val: float = 2.4477
 
     # --- static-shape knobs ---
-    rows: int = 152     # ceil(x_length / resolution) -> sublane-friendly
+    rows: int = 152     # ceil(x_length / resolution), a multiple of 8
     cols: int = 104     # ceil(y_length / resolution)
     # Fixed half-window (cells) replacing the data-dependent EllipseIterator
     # footprint (EllipseIterator.cpp:92-107): must cover

@@ -1,6 +1,6 @@
 """Float64 NumPy oracle: a faithful re-implementation of the reference C++
 CILQR stack, written fresh from the C++ semantics (NOT translated to be fast,
-translated to be *exact*).  The JAX/TPU engine is asserted against this to
+translated to be *exact*).  The JAX engine is asserted against this to
 <= 1e-3 on control trajectories (BASELINE.md parity bar).
 
 Every function cites the C++ it mirrors.  Quirks intentionally kept:
@@ -11,6 +11,9 @@ Every function cites the C++ it mirrors.  Quirks intentionally kept:
   * Raw-power degree-5 polyfit via lstsq (LocalPlanner.cpp:101-117).
   * 200-sample closest-point densification (Constraints.cpp:24-59).
   * Eigenvalue-clamp Q_uu regularization (iLQR.cpp:155-175).
+  * Backward-pass abort on an eigensolver failure (iLQR.cpp:159-162): a
+    non-finite Q_uu or gain ends the LM loop with X/U/lambda kept
+    (iLQR.cpp:213-215).
 """
 
 from __future__ import annotations
@@ -276,7 +279,8 @@ def rollout(p: SolverParams, x0, U):
 
 
 def backward_pass(p: SolverParams, X, U, coeffs, x_local_plan, lamb, obstacles=None, unc=None):
-    """iLQR.cpp:91-195."""
+    """iLQR.cpp:91-195 -> (k, K), or None when the pass aborts
+    (iLQR.cpp:159-162)."""
     N = p.horizon
     l_x, l_xx = state_cost_derivs(p, X, coeffs, x_local_plan, obstacles, unc)
     l_u, l_uu = control_cost_derivs(p, X, U)
@@ -293,6 +297,8 @@ def backward_pass(p: SolverParams, X, U, coeffs, x_local_plan, lamb, obstacles=N
         Q_xx = l_xx[j] + fx.T @ V_xx @ fx
         Q_ux = fu.T @ V_xx @ fx
         Q_uu = l_uu[j] + fu.T @ V_xx @ fu
+        if not np.isfinite(Q_uu).all():
+            return None
 
         w, V = np.linalg.eig(Q_uu)
         w = np.real(w)
@@ -302,6 +308,8 @@ def backward_pass(p: SolverParams, X, U, coeffs, x_local_plan, lamb, obstacles=N
 
         k[j] = -Q_uu_inv @ Q_u
         K[j] = -Q_uu_inv @ Q_ux
+        if not (np.isfinite(k[j]).all() and np.isfinite(K[j]).all()):
+            return None
         V_x = Q_x - K[j].T @ Q_uu @ k[j]
         V_xx = Q_xx - K[j].T @ Q_uu @ K[j]
     return k, K
@@ -328,7 +336,11 @@ def optimize(p: SolverParams, x0, U, coeffs, x_local_plan, obstacles=None, unc=N
     iters = 0
     for _ in range(p.max_iterations):
         iters += 1
-        k, K = backward_pass(p, X, U, coeffs, x_local_plan, lamb, obstacles, unc)
+        gains = backward_pass(p, X, U, coeffs, x_local_plan, lamb, obstacles, unc)
+        if gains is None:  # iLQR.cpp:213-215
+            J_old = get_J(p, X, U, coeffs, x_local_plan)
+            break
+        k, K = gains
         X_new, U_new = forward_pass(p, X, U, k, K)
         J_new = get_J(p, X, U, coeffs, x_local_plan)
         if J_new < J_old:

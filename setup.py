@@ -1,7 +1,7 @@
 """Build hooks: compile the native experiment-log library at install time.
 
 ``native/explog.cpp`` exports a plain-C API consumed via ctypes
-(cilqr_tpu/utils/explog.py) — the TPU-framework replacement for the
+(cilqr_tpu/utils/explog.py) — this framework's replacement for the
 reference's `rosbag record /experiment` persistence.  Building it as a
 setuptools extension ships a ready .so inside wheels; source checkouts
 fall back to `make -C native` on first use.

@@ -1,7 +1,7 @@
 """Baseline planners: Frenet lattice (3 uncertainty modes) and CCNMPC.
 
 The reference ships only run instructions for these algorithms
-(`Frenet/readme.md`, `CCNMPC/readme.md`); these tests lock the TPU-native
+(`Frenet/readme.md`, `CCNMPC/readme.md`); these tests lock the JAX
 implementations that complete the batch_dataprocess.py comparison axis.
 """
 
@@ -385,3 +385,16 @@ def test_full_stack_comparison_differentiates(global_plan):
     # uncertainty-map term (cilqr consumes it, cilqr_base discards it)
     assert not np.allclose(np.asarray(outs["cilqr"]),
                            np.asarray(outs["cilqr_base"]))
+
+
+def test_project_returns_reference_sample_exactly():
+    """frenet._project reads the nearest sample with an index, so (s, d) of
+    a point on a sample are exact (no product that a GPU may run in TF32)."""
+    from cilqr_tpu.models import frenet
+
+    s = jnp.linspace(0.0, 40.0, 81)
+    ref = frenet._RefLine(s, 100.0 + s, -300.0 + 0.1 * s,
+                          jnp.ones_like(s), jnp.zeros_like(s))
+    i = 37
+    s0, d0, yaw = frenet._project(ref, jnp.stack([ref.x[i], ref.y[i]]))
+    assert float(s0) == float(ref.s[i]) and float(d0) == 0.0 and float(yaw) == 0.0

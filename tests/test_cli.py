@@ -73,7 +73,7 @@ def test_cli_sweep_rotated_free_prior(tmp_path, capsys):
     rc = main([
         "sweep", "--sigmas", "0.3", "--algorithms", "cilqr_base",
         "--runs", "2", "--cycles", "20", "--horizon", "8",
-        "--rotate", "25", "--no-pallas", "--out", str(tmp_path),
+        "--rotate", "25", "--out", str(tmp_path),
     ])
     assert rc == 0
     rows = json.loads((tmp_path / "sweep.json").read_text())

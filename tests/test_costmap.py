@@ -203,204 +203,33 @@ def test_corridor_center_bounds_cover_route(global_plan):
     assert (c[:, 1] >= y_lo).all() and (c[:, 1] <= y_hi).all()
 
 
-@pytest.mark.parametrize("fused", [True, False])
-def test_sample_prior_pallas_matches_xla(global_plan, fused):
-    """Window-gather Pallas sampler (sample_pallas) vs vmapped sample_prior:
-    bit-identical f32 nearest resample across frames and yaw quadrants,
-    for both the fused grid=(B,) and the per-tile grid=(B, T) forms."""
+def test_batched_costmap_matches_vmapped_single_builds(global_plan):
+    """build_local_costmap_batched (one vmapped pre-stage + one batched
+    propagation) equals build_local_costmap per scenario."""
     import jax
 
-    from cilqr_tpu.ops import sample_pallas
-
-    rows, cols, res_v, res_g = 48, 40, 0.2, 0.5
-    H, W = 96, 88
-    rng = np.random.default_rng(4)
-    gmap = jnp.asarray(rng.uniform(0, 100, (H, W)), jnp.float32)
-    ggeom = gridmap.make_geom([110.0, -300.0], res_g, H, W, dtype=jnp.float32)
-    B = 6
-    egos = jnp.asarray(
-        np.stack([rng.uniform(100, 120, B), rng.uniform(-310, -290, B)], -1),
-        jnp.float32,
-    )
-    yaws = jnp.asarray(rng.uniform(-3.2, 3.2, B), jnp.float32)
-    centers = jnp.asarray(
-        np.stack([rng.uniform(-2, 10, B), rng.uniform(-3, 3, B)], -1),
-        jnp.float32,
-    )
-    geoms = jax.vmap(
-        lambda c: gridmap.make_geom(c, res_v, rows, cols, dtype=jnp.float32)
-    )(centers)
-
-    assert sample_pallas.supports(rows, cols, res_v, res_g, H, W)
-    got = sample_pallas.sample_prior_batched_tpu(
-        geoms, rows, cols, res_v, res_g, gmap, ggeom, egos, yaws, fused=fused
-    )
-    want = jax.vmap(
-        lambda g, e, y: costmap.sample_prior(g, rows, cols, gmap, ggeom, e, y)
-    )(geoms, egos, yaws)
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
-
-
-def _shear_pose_grid(map_center, span, yaw_list, pose_list):
-    ex, ey, yw = [], [], []
-    for x, y in pose_list:
-        for y_ in yaw_list:
-            ex.append(x)
-            ey.append(y)
-            yw.append(y_)
-    return np.asarray(ex), np.asarray(ey), np.asarray(yw)
-
-
-def test_sample_prior_shear_matches_xla(global_plan):
-    """Shear-decomposition Pallas sampler vs vmapped sample_prior:
-    bit-identical across yaw quadrants (incl. the eps-critical cos<0 /
-    sin<0 angles), border-touching and off-map poses (which exercise the
-    in-kernel window fallback)."""
-    import jax
-
-    from cilqr_tpu.ops import sample_pallas
-
-    rows, cols, res_v, res_g = 64, 56, 0.2, 0.5
-    H, W = 136, 132
-    rng = np.random.default_rng(7)
-    gmap = jnp.asarray(rng.uniform(0, 100, (H, W)), jnp.float32)
-    ggeom = gridmap.make_geom([50.0, -80.0], res_g, H, W, dtype=jnp.float32)
-    assert sample_pallas.supports_shear(rows, cols, res_v, res_g, H, W)
-
-    # centered, near-border, partially off, fully off poses x yaws that
-    # cover mode A/B and both eps signs (pi, -pi/2, -3.0 regressed once)
-    ex, ey, yw = _shear_pose_grid(
-        (50.0, -80.0), 30.0,
-        [0.0, np.pi / 4, np.pi / 2, np.pi, -np.pi / 2, -3.0, 2.2, -0.3],
-        [(50.0, -80.0), (62.0, -74.0), (78.0, -80.0), (50.0, -104.0),
-         (120.0, -80.0), (50.0, -200.0)],
-    )
-    B = len(ex)
-    egos = jnp.asarray(np.stack([ex, ey], -1), jnp.float32)
-    yaws = jnp.asarray(yw, jnp.float32)
-    centers = jnp.asarray(
-        np.stack([rng.uniform(-2, 10, B), rng.uniform(-3, 3, B)], -1),
-        jnp.float32,
-    )
-    geoms = jax.vmap(
-        lambda c: gridmap.make_geom(c, res_v, rows, cols, dtype=jnp.float32)
-    )(centers)
-
-    got = sample_pallas.sample_prior_batched_tpu(
-        geoms, rows, cols, res_v, res_g, gmap, ggeom, egos, yaws,
-        algo="shear",
-    )
-    want = jax.vmap(
-        lambda g, e, y: costmap.sample_prior(g, rows, cols, gmap, ggeom, e, y)
-    )(geoms, egos, yaws)
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
-
-
-def test_sample_prior_window_offset_coverage_regression(global_plan):
-    """Regression: the window kernel's offset loop must cover
-    o = lr - s up to extent + 14.  At cols=56 (extent 24, formerly
-    WR=32 < 24+14) a yaw=-pi/2 pose with the right index alignment left
-    ~1/3 of the first output row unwritten (zeros) — caught via the shear
-    kernel's fallback path, fixed by the extent+14 window sizing."""
-    import jax
-
-    from cilqr_tpu.ops import sample_pallas
-
-    rows, cols, res_v, res_g = 64, 56, 0.2, 0.5
-    H, W = 136, 132
-    rng = np.random.default_rng(7)
-    gmap = jnp.asarray(rng.uniform(0, 100, (H, W)), jnp.float32)
-    ggeom = gridmap.make_geom([50.0, -80.0], res_g, H, W, dtype=jnp.float32)
-    egos = jnp.asarray([[50.0, -104.0]], jnp.float32)
-    yaws = jnp.asarray([-np.pi / 2], jnp.float32)
-    geoms = jax.vmap(
-        lambda c: gridmap.make_geom(c, res_v, rows, cols, dtype=jnp.float32)
-    )(jnp.asarray([[9.0, 0.5]], jnp.float32))
-    got = sample_pallas.sample_prior_batched_tpu(
-        geoms, rows, cols, res_v, res_g, gmap, ggeom, egos, yaws,
-        algo="window",
-    )
-    want = jax.vmap(
-        lambda g, e, y: costmap.sample_prior(g, rows, cols, gmap, ggeom, e, y)
-    )(geoms, egos, yaws)
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
-
-
-@pytest.mark.slow
-def test_sample_prior_shear_matches_xla_production_size(global_plan):
-    """Shear sampler at the production 152x104 @ 0.2 m grid over a 256^2
-    @ 0.5 m global map: bit-identical for random poses and yaws."""
-    import jax
-
-    from cilqr_tpu.ops import sample_pallas
-
-    rows, cols, res_v, res_g = 152, 104, 0.2, 0.5
-    H = W = 256
-    rng = np.random.default_rng(11)
-    gmap = jnp.asarray(rng.uniform(0, 100, (H, W)), jnp.float32)
-    ggeom = gridmap.make_geom([110.0, -300.0], res_g, H, W, dtype=jnp.float32)
-    assert sample_pallas.supports_shear(rows, cols, res_v, res_g, H, W)
-    B = 24
-    egos = jnp.asarray(
-        np.stack([rng.uniform(80, 140, B), rng.uniform(-330, -270, B)], -1),
-        jnp.float32,
-    )
-    yaws = jnp.asarray(rng.uniform(-np.pi, np.pi, B), jnp.float32)
-    centers = jnp.asarray(
-        np.stack([rng.uniform(-2, 10, B), rng.uniform(-3, 3, B)], -1),
-        jnp.float32,
-    )
-    geoms = jax.vmap(
-        lambda c: gridmap.make_geom(c, res_v, rows, cols, dtype=jnp.float32)
-    )(centers)
-    got = sample_pallas.sample_prior_batched_tpu(
-        geoms, rows, cols, res_v, res_g, gmap, ggeom, egos, yaws,
-        algo="shear",
-    )
-    want = jax.vmap(
-        lambda g, e, y: costmap.sample_prior(g, rows, cols, gmap, ggeom, e, y)
-    )(geoms, egos, yaws)
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
-
-
-@pytest.mark.slow
-def test_build_local_costmap_batched_sample_kernel_path(global_plan):
-    """build_local_costmap_batched(global_res=...) (Pallas prior resample)
-    vs the default vmapped-XLA path: identical pipelines."""
-    import dataclasses as _dc
-
-    import jax
-
-    cp = _dc.replace(CostmapParams(), rows=32, cols=24, window_radius=5)
+    cp = small_costmap_params(rows=16, cols=12)
     rng = np.random.default_rng(9)
-    gm = jnp.asarray(rng.uniform(0, 100, (128, 128)), jnp.float32)
-    ggeom = gridmap.make_geom([130.0, -280.0], 1.0, 128, 128, dtype=jnp.float32)
-    wpts = jnp.asarray(global_plan, jnp.float32)
+    gm = jnp.asarray(rng.uniform(0, 100, (64, 64)))
+    ggeom = gridmap.make_geom([100.0, -305.0], 2.0, 64, 64, dtype=jnp.float64)
+    wpts = jnp.asarray(global_plan)
     n = jnp.asarray(wpts.shape[0])
-    B = 3
     egos = jnp.asarray(
-        np.array([100.0, -305.6, 4.0, 0.05])[None, :] + rng.normal(0, 0.3, (B, 4)),
-        jnp.float32,
-    )
-    obs_xy = jnp.asarray([[115.0, -305.0]], jnp.float32)
-    obs_size = jnp.asarray([[3.63, 1.84]], jnp.float32)
-    obs_yaw = jnp.asarray([0.1], jnp.float32)
-    obs_mask = jnp.asarray([1.0], jnp.float32)
+        np.array([100.0, -305.6, 4.0, 0.05])[None, :] + rng.normal(0, 0.3, (3, 4)))
+    obs = (jnp.asarray([[108.0, -305.0]]), jnp.asarray([[3.63, 1.84]]),
+           jnp.asarray([0.1]), jnp.asarray([1.0]))
+    sig = jnp.asarray([0.05, 0.04, 0.02])
 
-    fast = costmap.build_local_costmap_batched(
-        cp, gm, ggeom, wpts, n, egos, obs_xy, obs_size, obs_yaw, obs_mask,
-        global_res=1.0,
-    )
-    ref = costmap.build_local_costmap_batched(
-        cp, gm, ggeom, wpts, n, egos, obs_xy, obs_size, obs_yaw, obs_mask,
-    )
-    np.testing.assert_array_equal(
-        np.asarray(fast.vehicle_map), np.asarray(ref.vehicle_map)
-    )
-    np.testing.assert_allclose(
-        np.asarray(fast.uncertainty_map), np.asarray(ref.uncertainty_map),
-        rtol=1e-6, atol=1e-4,
-    )
+    got = costmap.build_local_costmap_batched(
+        cp, gm, ggeom, wpts, n, egos, *obs, sigmas=sig)
+    want = jax.vmap(lambda e: costmap.build_local_costmap(
+        cp, gm, ggeom, wpts, n, e, *obs, sigmas=sig))(egos)
+    for name in ("vehicle_map", "bounding_box_map", "uncertainty_map",
+                 "corridor_mask"):
+        np.testing.assert_allclose(
+            np.asarray(getattr(got, name)), np.asarray(getattr(want, name)),
+            rtol=1e-12, atol=1e-10, err_msg=name)
+    assert np.ptp(np.asarray(got.uncertainty_map)) > 1.0
 
 
 def test_cell_sigma_rho_anisotropic_rotates_diag():
@@ -443,83 +272,3 @@ def test_cell_sigma_rho_anisotropic_rotates_diag():
     np.testing.assert_array_equal(np.asarray(sy_c), np.asarray(sy_ref))
     np.testing.assert_array_equal(
         np.asarray(rho), np.asarray(0.017**2 * t / (sx_ref * sy_ref)))
-
-
-def test_shear_u_span_guard_and_auto_fallback():
-    """Round-4 review regression: supports_shear must bound the SCENARIO'S
-    u-axis span (the sheared scratch has 128 lanes) — wide-short grids at
-    k=1 passed the m-axis check alone and silently gathered garbage for
-    interior poses.  The guard must reject, and algo='auto' must then
-    produce exact values via the window path."""
-    import jax
-
-    from cilqr_tpu.ops import sample_pallas
-
-    rows, cols, res_v, res_g = 64, 126, 0.5, 0.5
-    H, W = 256, 256
-    assert not sample_pallas.supports_shear(rows, cols, res_v, res_g, H, W)
-    assert sample_pallas.supports(rows, cols, res_v, res_g, H, W)
-
-    rng = np.random.default_rng(11)
-    gmap = jnp.asarray(rng.uniform(0, 100, (H, W)), jnp.float32)
-    ggeom = gridmap.make_geom([0.0, 0.0], res_g, H, W, dtype=jnp.float32)
-    # the poses that reproduced the corruption pre-guard (292 and 55 wrong
-    # cells at yaw 1.45 / pi/4) plus quadrant coverage
-    ex = np.asarray([5.0, 5.0, 0.0, -8.0])
-    ey = np.asarray([3.0, 3.0, 0.0, 6.0])
-    yw = np.asarray([1.45, np.pi / 4, -2.8, 0.3])
-    B = len(ex)
-    egos = jnp.asarray(np.stack([ex, ey], -1), jnp.float32)
-    yaws = jnp.asarray(yw, jnp.float32)
-    centers = jnp.asarray(
-        np.stack([rng.uniform(-2, 4, B), rng.uniform(-2, 2, B)], -1),
-        jnp.float32)
-    geoms = jax.vmap(
-        lambda c: gridmap.make_geom(c, res_v, rows, cols, dtype=jnp.float32)
-    )(centers)
-    got = sample_pallas.sample_prior_batched_tpu(
-        geoms, rows, cols, res_v, res_g, gmap, ggeom, egos, yaws,
-        algo="auto")
-    want = jax.vmap(
-        lambda g, e, y: costmap.sample_prior(g, rows, cols, gmap, ggeom, e, y)
-    )(geoms, egos, yaws)
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
-
-
-def test_window_kernel_bottom_clipped_row0_regression():
-    """Round-4 review regression: with the row window clipped at the map
-    bottom (pose at/over the low-x border -> ii near H-1), lr inflated past
-    the offset loop's coverage and the kernel returned 0 instead of the
-    border-clamped map values (840 wrong cells at the production-eligible
-    64x56@0.2 / 136x132@0.5 config).  Exactness must hold on the window
-    path AND through the shear kernel's border fallback."""
-    import jax
-
-    from cilqr_tpu.ops import sample_pallas
-
-    rows, cols, res_v, res_g = 64, 56, 0.2, 0.5
-    H, W = 136, 132
-    rng = np.random.default_rng(13)
-    gmap = jnp.asarray(rng.uniform(1.0, 100, (H, W)), jnp.float32)
-    ggeom = gridmap.make_geom([50.0, -80.0], res_g, H, W, dtype=jnp.float32)
-    # low-x border (ii ~ H-1, row0 clipped), several yaws; plus a corner
-    ex = np.asarray([16.0, 16.0, 16.0, 17.5])
-    ey = np.asarray([-80.0, -80.0, -100.0, -47.0])
-    yw = np.asarray([0.0, 2.0, -np.pi / 2, np.pi])
-    B = len(ex)
-    egos = jnp.asarray(np.stack([ex, ey], -1), jnp.float32)
-    yaws = jnp.asarray(yw, jnp.float32)
-    centers = jnp.asarray(
-        np.stack([rng.uniform(-2, 10, B), rng.uniform(-3, 3, B)], -1),
-        jnp.float32)
-    geoms = jax.vmap(
-        lambda c: gridmap.make_geom(c, res_v, rows, cols, dtype=jnp.float32)
-    )(centers)
-    want = jax.vmap(
-        lambda g, e, y: costmap.sample_prior(g, rows, cols, gmap, ggeom, e, y)
-    )(geoms, egos, yaws)
-    for algo in ("window", "shear"):
-        got = sample_pallas.sample_prior_batched_tpu(
-            geoms, rows, cols, res_v, res_g, gmap, ggeom, egos, yaws,
-            algo=algo)
-        np.testing.assert_array_equal(np.asarray(got), np.asarray(want))

@@ -1,10 +1,10 @@
-"""Fully-fused LM-iteration kernel (ops/lm_pallas) vs the vmap reference.
+"""Fused LM-solve kernel (ops/lm_pallas) in interpret mode vs the XLA route.
 
-Runs the Pallas interpreter on CPU (auto-selected by
-``lm_pallas._auto_interpret``).  Interpret-mode numerics match XLA CPU
-op-for-op, so parity here is tight; on real TPU hardware the paths agree to
-f32 rounding except for closest-point argmin tie flips (see the module
-docstring of ops/lm_pallas.py).
+The Pallas interpreter runs the Triton-route kernel on the CPU; its
+numerics match XLA's CPU code op for op except the sequentially summed J
+(see the module docstring), so trajectories agree to float32 rounding.
+The compiled kernel is compared with XLA on the card by
+tests/test_gpu_chip.py and chip_smoke.py.
 """
 
 import dataclasses
@@ -12,6 +12,7 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from cilqr_tpu.models import (
     obstacles as obs_mod,
@@ -20,17 +21,12 @@ from cilqr_tpu.models import (
     solver_batched,
     uncertainty as unc_mod,
 )
-from cilqr_tpu.ops import lm_pallas, riccati_pallas
-import pytest
+from cilqr_tpu.ops import lm_pallas
 
 
-def _setup(params, global_plan, B, horizon=8, max_iterations=4, seed=61):
-    # NOTE on sizes: interpret-mode Pallas cost is almost entirely
-    # trace+compile (a cached re-call is ~0.3 s), dominated by the statically
-    # unrolled closest-point sample table (S = num_of_local_wpts *
-    # closest_point_samples_per_wpt).  S=40 keeps the chunked min-tree
-    # structure while cutting per-test compile ~3x; the production S=200
-    # config is exercised on real TPU by scripts/drive_e2e.py and bench.py.
+def _setup(params, global_plan, B, horizon=6, max_iterations=3, seed=61):
+    # small horizon and sample table (S = 8 * 5): interpret-mode cost is
+    # trace + execution of the per-lane loops
     p = dataclasses.replace(
         params, horizon=horizon, max_iterations=max_iterations,
         num_of_local_wpts=8, closest_point_samples_per_wpt=5,
@@ -44,52 +40,83 @@ def _setup(params, global_plan, B, horizon=8, max_iterations=4, seed=61):
     U0 = jnp.broadcast_to(
         solver.initial_controls(p, dtype=jnp.float32), (B, p.horizon, 2)
     )
-    return p, plan, n, egos, U0
+    plans = jax.vmap(lambda e: rp.get_local_plan(p, plan, n, e))(egos)
+    return p, plans, egos, U0, rng
 
 
-@pytest.mark.slow
-def test_mega_matches_vmap_path_full_world(params, global_plan):
-    """Obstacles + uncertainty map: the complete in-kernel derivative stack."""
-    B = riccati_pallas.TILE
-    p, plan, n, egos, U0 = _setup(params, global_plan, B)
+def _world(p, kind, egos, rng):
+    B = egos.shape[0]
+    if kind == "none":
+        return None, None
     ob = obs_mod.make_static_obstacles(
         p, [[112.0, -305.5], [125.0, -304.6]], [[3.63, 1.84]] * 2, [0.0, 0.3],
         dtype=jnp.float32,
     )
-    unc = unc_mod.make_uncertainty_map(
-        np.random.default_rng(0).uniform(0.0, 100.0, (48, 32)),
-        [10.0, 0.0], 0.2, np.asarray(egos[0, :2]), float(egos[0, 3]),
-        dtype=jnp.float32,
-    )
-
-    got = solver_batched.run_steps_batched(
-        p, plan, n, egos, U0, obstacles=ob, unc_map=unc, impl="mega"
-    )
-
-    S = 48  # full B through the vmap reference is slow on CPU
-    want = jax.vmap(lambda e, u: solver.run_step(p, plan, n, e, u, ob, unc))(
-        egos[:S], U0[:S]
-    )
-    np.testing.assert_array_equal(
-        np.asarray(got.iterations[:S]), np.asarray(want.iterations)
-    )
-    np.testing.assert_allclose(np.asarray(got.U[:S]), np.asarray(want.U), rtol=2e-3, atol=2e-3)
-    np.testing.assert_allclose(np.asarray(got.X[:S]), np.asarray(want.X), rtol=2e-3, atol=2e-2)
-    np.testing.assert_allclose(np.asarray(got.J[:S]), np.asarray(want.J), rtol=1e-4)
+    if kind == "shared":
+        return ob, unc_mod.make_uncertainty_map(
+            rng.uniform(0.0, 100.0, (48, 32)), [10.0, 0.0], 0.2,
+            np.asarray(egos[0, :2]), float(egos[0, 3]), dtype=jnp.float32)
+    maps = [
+        unc_mod.make_uncertainty_map(
+            rng.uniform(0.0, 100.0, (24, 16)), [5.0, 0.0], 0.25,
+            np.asarray(egos[i, :2]), float(egos[i, 3]), dtype=jnp.float32)
+        for i in range(B)
+    ]
+    return ob, jax.tree.map(lambda *a: jnp.stack(a), *maps)
 
 
-@pytest.mark.slow
-def test_mega_no_world_matches_vmap_path(params, global_plan):
-    """Static switches: kernel specialized without obstacle/uncertainty code."""
-    B = riccati_pallas.TILE
-    p, plan, n, egos, U0 = _setup(params, global_plan, B, seed=7)
-    got = solver_batched.run_steps_batched(p, plan, n, egos, U0, impl="mega")
-    S = 32
-    want = jax.vmap(lambda e, u: solver.run_step(p, plan, n, e, u))(egos[:S], U0[:S])
-    np.testing.assert_array_equal(
-        np.asarray(got.iterations[:S]), np.asarray(want.iterations)
-    )
-    np.testing.assert_allclose(np.asarray(got.U[:S]), np.asarray(want.U), rtol=2e-3, atol=2e-3)
+@pytest.mark.parametrize("world", ["none", "shared", "per_scenario_maps"])
+def test_kernel_matches_xla_route(params, global_plan, world):
+    """B = 37: one program, its lanes 37.. padded with copies of lane 0."""
+    p, plans, egos, U0, rng = _setup(params, global_plan, 37)
+    ob, um = _world(p, world, egos, rng)
+    got = lm_pallas.fused_optimize(p, plans, egos, U0, ob, um, interpret=True)
+    want = solver_batched.batched_optimize(p, plans, egos, U0, ob, um)
+    X, U, it, J, lamb, failed = (np.asarray(a) for a in got)
+    assert X.shape == (37, p.horizon + 1, 4) and it.dtype == np.int32
+    np.testing.assert_array_equal(it, np.asarray(want[2]))
+    np.testing.assert_array_equal(lamb, np.asarray(want[4]))
+    np.testing.assert_array_equal(failed, np.asarray(want[5]))
+    np.testing.assert_allclose(X, np.asarray(want[0]), rtol=1e-5, atol=2e-5)
+    np.testing.assert_allclose(U, np.asarray(want[1]), rtol=1e-5, atol=2e-5)
+    np.testing.assert_allclose(J, np.asarray(want[3]), rtol=2e-6)
+
+
+def test_padding_lanes_do_not_change_a_lane(params, global_plan):
+    """B = 1 (one program of copies) and B = 5 give lane 0 the same solve:
+    a lane's result does not depend on its block's co-tenants."""
+    p, plans, egos, U0, rng = _setup(params, global_plan, 5, horizon=4,
+                                     max_iterations=2, seed=11)
+    ob, um = _world(p, "shared", egos, rng)
+    five = lm_pallas.fused_optimize(p, plans, egos, U0, ob, um, interpret=True)
+    one = lm_pallas.fused_optimize(
+        p, jax.tree.map(lambda a: a[:1], plans), egos[:1], U0[:1], ob, um,
+        interpret=True)
+    for a, b in zip(one, five):
+        np.testing.assert_array_equal(np.asarray(a[0]), np.asarray(b[0]))
+    assert one[1].shape == (1, p.horizon, 2)
+
+
+def test_absent_world_adds_exact_zeros(params):
+    """No obstacles / no map: the payloads make every barrier term an exact
+    zero, so one compiled kernel serves every world kind."""
+    p = dataclasses.replace(params, horizon=4)
+    obs = lm_pallas.prep_obstacles(p, None)
+    assert obs.shape == (p.max_obstacles * 6, 4) and not np.asarray(obs).any()
+    flat, frame = lm_pallas.prep_unc_map(None, 3)
+    fr = np.asarray(frame)
+    assert fr.shape == (lm_pallas.N_FRAME, 3) and (fr[7] > fr[8]).all()
+    assert (fr[6] == 1.0).all()  # a finite resolution: no 0 * inf
+    assert flat.shape == (4,) and (fr[11:13] == 1.0).all() and (fr[13] == 2.0).all()
+
+
+def test_kernel_rejects_per_scenario_obstacles(params, global_plan):
+    p, plans, egos, U0, rng = _setup(params, global_plan, 2)
+    ob, _ = _world(p, "shared", egos, rng)
+    ob_b = jax.tree.map(lambda a: jnp.broadcast_to(a, (2,) + a.shape), ob)
+    assert not solver_batched.kernel_route(egos, ob_b)
+    with pytest.raises(ValueError, match="shared obstacles"):
+        lm_pallas.fused_optimize(p, plans, egos, U0, ob_b, None, interpret=True)
 
 
 def test_prep_obstacles_quadratic_form(params):
@@ -116,59 +143,31 @@ def test_prep_obstacles_quadratic_form(params):
         np.testing.assert_allclose(got, want, rtol=1e-5)
 
 
-def test_prep_unc_map_corners_and_frame(params):
+def test_prep_unc_map_flat_values_and_frame(params):
+    """Shared maps broadcast one frame to every lane; per-scenario maps are
+    laid out lane after lane for the in-kernel gather."""
     rng = np.random.default_rng(3)
     vals = rng.uniform(0, 100, (9, 7))
     unc = unc_mod.make_uncertainty_map(vals, [1.0, 0.5], 0.25, [2.0, -1.0], 0.3,
                                        dtype=jnp.float32)
-    m4, scl, (H, W) = lm_pallas.prep_unc_map(unc)
-    assert (H, W) == (9, 7)
-    K = m4.shape[0] // 4
-    flat = np.asarray(vals, np.float32).reshape(-1)
-    m4n = np.asarray(m4).reshape(4, K * 128)[:, : H * W]
-    np.testing.assert_array_equal(m4n[0], flat)
-    np.testing.assert_array_equal(m4n[1][:-1], flat[1:])
-    np.testing.assert_array_equal(m4n[2][: -W], flat[W:])
-    s = np.asarray(scl)[0]
-    np.testing.assert_allclose(s[2], np.cos(0.3), rtol=1e-6)
-    np.testing.assert_allclose(s[6], 4.0, rtol=1e-6)  # 1/res
-
-
-@pytest.mark.slow
-def test_inkernel_loop_matches_per_iteration_form(params, global_plan):
-    """The whole-LM-loop kernel (_opt_kernel) vs the one-kernel-call-per-
-    iteration form with XLA accept/reject bookkeeping: identical iteration
-    counts and trajectories (same update order by construction)."""
-    B = riccati_pallas.TILE
-    p, plan, n, egos, U0 = _setup(params, global_plan, B, horizon=4,
-                                  max_iterations=3, seed=23)
-    plans = jax.vmap(lambda e: rp.get_local_plan(p, plan, n, e))(egos)
-    a = lm_pallas.fused_optimize(p, plans, egos, U0, inkernel_loop=True)
-    b = lm_pallas.fused_optimize(p, plans, egos, U0, inkernel_loop=False)
-    for xa, xb, name in zip(a, b, ("X", "U", "it", "J", "lamb")):
-        np.testing.assert_allclose(
-            np.asarray(xa), np.asarray(xb), rtol=1e-6, atol=1e-6,
-            err_msg=name,
-        )
-
-
-@pytest.mark.slow
-def test_mega_arbitrary_batch_padding(params, global_plan):
-    """Non-tile batch sizes pad internally and slice back."""
-    B = 100
-    p, plan, n, egos, U0 = _setup(params, global_plan, B, horizon=4,
-                                  max_iterations=2, seed=11)
-    res = solver_batched.run_steps_batched(p, plan, n, egos, U0, impl="mega")
-    assert res.U.shape == (B, p.horizon, 2)
-    assert np.isfinite(np.asarray(res.U)).all()
-
-    # B=1 — the serving fast path (bench device_single_solve_ms_mega_b1,
-    # ARCHITECTURE §8): one padded tile whose padding lanes replay lane 0.
-    # Lane 0's result must be invariant to its tile co-tenants.
-    res1 = solver_batched.run_steps_batched(
-        p, plan, n, egos[:1], U0[:1], impl="mega")
-    assert res1.U.shape == (1, p.horizon, 2)
+    flat, frame = lm_pallas.prep_unc_map(unc, 4)
+    np.testing.assert_array_equal(np.asarray(flat), vals.astype(np.float32).ravel())
+    fr = np.asarray(frame)
+    assert fr.shape == (lm_pallas.N_FRAME, 4)
+    np.testing.assert_allclose(fr[:, 0], fr[:, 3])
+    np.testing.assert_allclose(fr[:4, 0], [2.0, -1.0, np.cos(0.3), np.sin(0.3)],
+                               rtol=1e-6)
+    # first cell center = center + length/2 - res/2; bounds = center -+ length/2
     np.testing.assert_allclose(
-        np.asarray(res1.U[0]), np.asarray(res.U[0]), rtol=1e-6, atol=1e-6)
-    np.testing.assert_array_equal(
-        np.asarray(res1.iterations[0]), np.asarray(res.iterations[0]))
+        fr[4:, 0], [1.0 + 1.125 - 0.125, 0.5 + 0.875 - 0.125, 0.25,
+                    1.0 - 1.125, 1.0 + 1.125, 0.5 - 0.875, 0.5 + 0.875,
+                    8.0, 6.0, 7.0, 0.0],
+        rtol=1e-6)
+
+    two = jax.tree.map(lambda *a: jnp.stack(a), unc, unc._replace(
+        values=unc.values + 1.0, origin_yaw=jnp.asarray(-0.2, jnp.float32)))
+    flat, frame = lm_pallas.prep_unc_map(two, 2)
+    assert flat.shape == (2 * 9 * 7,) and (np.asarray(frame[14]) == 63.0).all()
+    np.testing.assert_allclose(np.asarray(flat[63:]) - np.asarray(flat[:63]), 1.0,
+                               atol=1e-4)
+    np.testing.assert_allclose(np.asarray(frame[2]), np.cos([0.3, -0.2]), rtol=1e-6)

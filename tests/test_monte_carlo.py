@@ -85,21 +85,24 @@ def test_multihost_helpers_single_process(params):
     assert d == {"mean_J": 1.0, "max_J": 2.0, "mean_iterations": 3.0, "converged_frac": 0.5}
 
 
-@pytest.mark.slow
-def test_fast_impl_matches_reference_impl(params):
-    """Batched propagation kernel + world_batched two-phase solve vs the
-    vmapped per-sample oracle (f32 propagation => 1e-3-level agreement)."""
+def test_batched_pipeline_matches_reference_at_256(params):
+    """B = 256 sampled scenarios: the batched pipeline (batched propagation
+    + batched solve with per-scenario maps) equals the per-sample oracle
+    (vmap of mc_solve_one) in float64."""
     p, cp, prior, geom, plan, n, ego = _setup(params)
-    p = dataclasses.replace(p, horizon=6, max_iterations=3)
-    samples = mc.sample_scenarios(jax.random.key(11), 8, ego, dtype=jnp.float64)
+    p = dataclasses.replace(p, horizon=6, max_iterations=3,
+                            num_of_local_wpts=8, closest_point_samples_per_wpt=5)
+    plan, n = rp.pad_global_plan(
+        p, np.asarray(plan[: int(n)]), dtype=jnp.float64)
+    samples = mc.sample_scenarios(jax.random.key(11), 256, ego, dtype=jnp.float64)
     args = (p, cp, prior, geom, jnp.asarray(ego[:2]), jnp.asarray(ego[3]),
             plan, n, samples)
-    fast = mc.monte_carlo(*args, impl="fast")
-    ref = mc.monte_carlo(*args, impl="reference")
+    got = mc.monte_carlo(*args)
+    want = mc.monte_carlo_reference(*args)
     np.testing.assert_array_equal(
-        np.asarray(fast.iterations), np.asarray(ref.iterations)
-    )
-    np.testing.assert_allclose(np.asarray(fast.U), np.asarray(ref.U),
-                               rtol=1e-4, atol=1e-4)
-    np.testing.assert_allclose(np.asarray(fast.X), np.asarray(ref.X),
-                               rtol=1e-4, atol=1e-3)
+        np.asarray(got.iterations), np.asarray(want.iterations))
+    for name in ("X", "U", "J"):
+        np.testing.assert_allclose(
+            np.asarray(getattr(got, name)), np.asarray(getattr(want, name)),
+            rtol=1e-9, atol=1e-9, err_msg=name)
+    assert np.std(np.asarray(got.U)[:, 0, 0]) > 1e-6

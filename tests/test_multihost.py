@@ -74,12 +74,11 @@ def worker_outputs(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
-def worker_outputs_v5e8(tmp_path_factory):
-    """2 processes x 4 virtual devices each — the actual v5e-8 two-host
-    topology (BASELINE config 5) — running the checkpointed campaign phase
-    only (VERDICT r4 #8: exercise the pod-slice SHAPE itself, not just
-    2 x 2)."""
-    out = tmp_path_factory.mktemp("mh_v5e8")
+def worker_outputs_two_hosts(tmp_path_factory):
+    """2 processes x 4 virtual devices each — a two-host topology (BASELINE
+    config 5) — running the checkpointed campaign phase only (exercise the
+    multi-host SHAPE itself, not just 2 x 2)."""
+    out = tmp_path_factory.mktemp("mh_two_hosts")
     port = _free_port()
     env = dict(os.environ)
     env.pop("JAX_PLATFORMS", None)
@@ -109,12 +108,12 @@ def worker_outputs_v5e8(tmp_path_factory):
     return out
 
 
-def test_v5e8_shaped_campaign_matches_single_process(worker_outputs_v5e8,
+def test_two_host_shaped_campaign_matches_single_process(worker_outputs_two_hosts,
                                                      tmp_path):
-    """The 2-host x 4-device (v5e-8-shaped) campaign equals the
+    """The 2-host x 4-device campaign equals the
     single-process 8-device ground truth and its explog shards merge
     without double counting."""
-    out = worker_outputs_v5e8
+    out = worker_outputs_two_hosts
     c0 = json.loads((out / "campaign_0.json").read_text())
     c1 = json.loads((out / "campaign_1.json").read_text())
     assert c0 == c1  # psum-global state is replicated across hosts

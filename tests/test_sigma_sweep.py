@@ -10,7 +10,7 @@ uncertainty term is the difference between grazing the wall and clearing it.
 
 These are CPU-sized versions (coarse 0.4 m costmap with the same 30x21 m
 coverage as the production 152x104@0.2 grid, horizon 24) of the production
-TPU sweep recorded in docs/BASELINES.md (`python -m cilqr_tpu sweep`).
+sweep recorded in docs/BASELINES.md (`python -m cilqr_tpu sweep`).
 """
 
 import dataclasses
@@ -45,7 +45,7 @@ def _run(setup, sigmas, algorithms, n_runs=10):
     return sweep.run_sigma_sweep(
         sigmas, algorithms=algorithms, scenario=sc, p=p, cp=cp,
         global_map=gm, global_geom=gg, n_runs=n_runs, n_cycles=140,
-        seed=0, use_pallas=False, sigma_theta_ratio=0.2,
+        seed=0, sigma_theta_ratio=0.2,
     )
 
 
@@ -139,7 +139,7 @@ def test_rotated_gauntlet_separation(sweep_setup):
         rows = sweep.run_sigma_sweep(
             [SIGMA_HI], algorithms=("cilqr", "cilqr_base"), scenario=sc_rot,
             p=p, cp=cp, global_map=gm, global_geom=gg, n_runs=10,
-            n_cycles=140, seed=seed, use_pallas=False, sigma_theta_ratio=0.2,
+            n_cycles=140, seed=seed, sigma_theta_ratio=0.2,
             plan=plan_rot)
         for r in rows:
             tot[r["algorithm"]][0] += r["collision_runs"]
@@ -177,7 +177,7 @@ def test_reference_ratio_pooled_separation(sweep_setup):
         rows = sweep.run_sigma_sweep(
             [SIGMA_HI], algorithms=("cilqr", "cilqr_base"), scenario=sc,
             p=p, cp=cp, global_map=gm, global_geom=gg, n_runs=10,
-            n_cycles=140, seed=seed, use_pallas=False,
+            n_cycles=140, seed=seed,
             sigma_theta_ratio=0.017 / 0.16)
         by = {r["algorithm"]: r for r in rows}
         pooled["cilqr"] += by["cilqr"]["collision_runs"]

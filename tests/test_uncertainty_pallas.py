@@ -1,7 +1,9 @@
-"""Pallas propagation kernel vs the pure-XLA reference (interpret mode)."""
+"""Propagation kernel (ops/uncertainty_pallas) in interpret mode vs the XLA
+reference, and the band plan that sets its windows (ops/costmap)."""
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -9,208 +11,88 @@ import pytest
 from cilqr_tpu.ops import costmap, gridmap, uncertainty_pallas
 from cilqr_tpu.utils.params import CostmapParams
 
+# float32 kernel vs float32 XLA reference: the kernel multiplies by 1/sigma
+# where the reference divides, so weights differ in the last bits
+RTOL, ATOL = 2e-5, 2e-4
+
 
 @pytest.mark.parametrize("yaw", [0.0, 2.1])
-@pytest.mark.slow
-def test_pallas_kernel_matches_xla_reference(yaw):
-    cp = dataclasses.replace(
-        CostmapParams(), rows=24, cols=16, window_radius=6,
-        sigma_x=0.05, sigma_y=0.05, sigma_theta=0.03,
-    )
-    rng = np.random.default_rng(21)
-    prior = jnp.asarray(rng.uniform(0, 100, (cp.rows, cp.cols)), dtype=jnp.float32)
-    geom = gridmap.make_geom([1.0, 0.5], cp.resolution, cp.rows, cp.cols, dtype=jnp.float32)
-
-    want = costmap.propagate_uncertainty_reference(cp, prior, geom, jnp.asarray(yaw, jnp.float32))
-    got = uncertainty_pallas.propagate_uncertainty_tpu(
-        cp, prior, geom, jnp.asarray(yaw, jnp.float32), interpret=True
-    )
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=2e-5, atol=2e-4)
-
-
-def test_batched_kernel_matches_vmapped_reference():
-    """Per-scenario sigmas over one shared prior (the Monte-Carlo layout)."""
-    cp = dataclasses.replace(CostmapParams(), rows=24, cols=20, window_radius=6)
-    rng = np.random.default_rng(3)
-    prior = jnp.asarray(rng.uniform(0, 100, (24, 20)), jnp.float32)
-    geom = gridmap.make_geom([2.0, -1.0], cp.resolution, 24, 20, dtype=jnp.float32)
-    yaw = jnp.asarray(0.7, jnp.float32)
-    sigmas = jnp.asarray(rng.uniform(0.005, 0.05, (5, 3)), jnp.float32)
-
-    import jax
-
-    got = uncertainty_pallas.propagate_uncertainty_tpu_batched(
-        cp, prior, geom, yaw, sigmas, interpret=True
-    )
-    want = jax.vmap(
-        lambda sg: costmap.propagate_uncertainty_reference(
-            cp, prior, geom, yaw, sigmas=(sg[0], sg[1], sg[2])
-        )
-    )(sigmas)
-    assert got.shape == (5, 24, 20)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=2e-5, atol=2e-4)
-    # scenarios must actually differ (per-sigma fields reach the kernel)
-    assert float(jnp.max(jnp.abs(got[0] - got[-1]))) > 1e-3
-
-
-@pytest.mark.slow
-def test_banded_kernel_bit_identical_to_full_window():
-    """Row bands with per-band radii from make_band_plan reproduce the
-    fixed-window kernel exactly (coverage => w=0 beyond the ellipse)."""
+@pytest.mark.parametrize("banded", [False, True])
+def test_kernel_matches_reference_shared_prior(yaw, banded):
+    """Per-scenario sigmas over one shared prior (the Monte-Carlo layout);
+    with and without the band plan's per-band windows and disc cut."""
     cp = dataclasses.replace(CostmapParams(), rows=40, cols=20, window_radius=12)
     rng = np.random.default_rng(5)
     prior = jnp.asarray(rng.uniform(0, 100, (40, 20)), jnp.float32)
     geom = gridmap.make_geom([4.0, 0.0], cp.resolution, 40, 20, dtype=jnp.float32)
-    yaw = jnp.asarray(0.4, jnp.float32)
+    yaw = jnp.asarray(yaw, jnp.float32)
     sigma_hi = (0.16, 0.16, 0.017)
-    sig_xy = rng.uniform(0.005, 0.16, (4, 2))
-    sig_t = rng.uniform(0.005, 0.017, (4, 1))
-    sigmas = jnp.asarray(np.concatenate([sig_xy, sig_t], axis=1), jnp.float32)
+    sigmas = jnp.asarray(np.concatenate(
+        [rng.uniform(0.005, 0.16, (3, 2)), rng.uniform(0.005, 0.017, (3, 1))],
+        axis=1), jnp.float32)
+    plan = costmap.make_band_plan(cp, 40, 20, (4.0, 0.0), sigma_hi) if banded else None
 
-    plan = uncertainty_pallas.make_band_plan(cp, 40, 20, (4.0, 0.0), sigma_hi)
-    assert plan.sigma_hi == sigma_hi
-    assert len(plan.bands) >= 2
-    assert all(r <= cp.window_radius for _, _, r in plan.bands)
-    # the disc cut must be present and actually cut corners off the square
-    assert plan.disc_radii is not None and len(plan.disc_radii) == len(plan.bands)
-    assert all(
-        rd < (2 ** 0.5) * r for (_, _, r), rd in zip(plan.bands, plan.disc_radii)
-    )
-    banded = uncertainty_pallas.propagate_uncertainty_tpu_banded(
-        cp, prior, geom, yaw, sigmas, plan, interpret=True
-    )
-    full = uncertainty_pallas.propagate_uncertainty_tpu_batched(
-        cp, prior, geom, yaw, sigmas, interpret=True
-    )
-    np.testing.assert_array_equal(np.asarray(banded), np.asarray(full))
+    got = uncertainty_pallas.propagate_batched(
+        cp, prior, geom, yaw, sigmas, plan, interpret=True)
+    want = jax.vmap(lambda sg: costmap.propagate_uncertainty_reference(
+        cp, prior, geom, yaw, sigmas=(sg[0], sg[1], sg[2])))(sigmas)
+    assert got.shape == (3, 40, 20)
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=RTOL, atol=ATOL)
+    # scenarios must actually differ (per-sigma fields reach the kernel)
+    assert float(jnp.max(jnp.abs(got[0] - got[-1]))) > 1e-3
 
 
-def test_per_scenario_prior_and_frame_matches_reference():
-    """Full-stack layout: every scenario has its own prior, geometry center,
-    and yaw (sigmas from cp defaults)."""
-    import jax
-
-    cp = dataclasses.replace(CostmapParams(), rows=20, cols=16, window_radius=5)
+def test_kernel_matches_reference_per_scenario_prior_and_frame():
+    """Full-stack layout: every scenario has its own prior, geometry center
+    and yaw (sigmas from cp defaults); 20x18 is not a tile multiple."""
+    cp = dataclasses.replace(CostmapParams(), rows=20, cols=18, window_radius=5)
     rng = np.random.default_rng(3)
     B = 3
-    priors = jnp.asarray(rng.uniform(0, 100, (B, 20, 16)), jnp.float32)
+    priors = jnp.asarray(rng.uniform(0, 100, (B, 20, 18)), jnp.float32)
     centers = jnp.asarray([[3.0, 0.0], [4.0, 0.5], [2.5, -0.5]], jnp.float32)
     geoms = jax.vmap(
-        lambda c: gridmap.make_geom(c, cp.resolution, 20, 16, dtype=jnp.float32)
+        lambda c: gridmap.make_geom(c, cp.resolution, 20, 18, dtype=jnp.float32)
     )(centers)
     yaws = jnp.asarray([0.1, 0.5, -0.3], jnp.float32)
 
-    plan = uncertainty_pallas.BandPlan(((0, 20, cp.window_radius),), None)
-    got = uncertainty_pallas.propagate_uncertainty_tpu_banded(
-        cp, priors, geoms, yaws, None, plan, interpret=True
-    )
-    want = jax.vmap(
-        lambda pr, c, y: costmap.propagate_uncertainty_reference(
-            cp, pr,
-            gridmap.make_geom(c, cp.resolution, 20, 16, dtype=jnp.float32), y,
-        )
-    )(priors, centers, yaws)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                               rtol=2e-5, atol=2e-4)
+    got = uncertainty_pallas.propagate_batched(
+        cp, priors, geoms, yaws, None, None, interpret=True)
+    want = costmap.propagate_uncertainty_batched(cp, priors, geoms, yaws)
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=RTOL, atol=ATOL)
 
 
-@pytest.mark.slow
-def test_band_plan_bounds_bit_identical_over_center_interval():
-    """Bounded band plan (per-scenario frames, the full-stack layout):
-    bit-identical to the full-window kernel for every center inside the
-    interval the plan was built for."""
-    import jax
-
-    cp = dataclasses.replace(CostmapParams(), rows=40, cols=20, window_radius=12,
-                             sigma_x=0.05, sigma_y=0.05, sigma_theta=0.03)
-    rng = np.random.default_rng(11)
-    B = 4
-    priors = jnp.asarray(rng.uniform(0, 100, (B, 40, 20)), jnp.float32)
-    x_range, y_range = (1.0, 5.0), (-1.0, 1.0)
-    centers = jnp.asarray(
-        np.stack([rng.uniform(*x_range, B), rng.uniform(*y_range, B)], -1),
-        jnp.float32,
-    )
-    geoms = jax.vmap(
-        lambda c: gridmap.make_geom(c, cp.resolution, 40, 20, dtype=jnp.float32)
-    )(centers)
-    yaws = jnp.asarray(rng.uniform(-3.0, 3.0, B), jnp.float32)
-
-    plan = uncertainty_pallas.make_band_plan_bounds(
-        cp, 40, 20, x_range, y_range,
-        (cp.sigma_x, cp.sigma_y, cp.sigma_theta),
-    )
-    assert plan.x_range == x_range and plan.y_range == y_range
-    assert len(plan.bands) >= 2
-    assert all(r <= cp.window_radius for _, _, r in plan.bands)
-    assert min(r for _, _, r in plan.bands) < max(r for _, _, r in plan.bands)
-
-    banded = uncertainty_pallas.propagate_uncertainty_tpu_banded(
-        cp, priors, geoms, yaws, None, plan, interpret=True
-    )
-    full = uncertainty_pallas.propagate_uncertainty_tpu_banded(
-        cp, priors, geoms, yaws, None,
-        uncertainty_pallas.BandPlan(((0, 40, cp.window_radius),), None),
-        interpret=True,
-    )
-    np.testing.assert_array_equal(np.asarray(banded), np.asarray(full))
+def test_tile_tables_take_the_largest_band_per_tile():
+    plan = costmap.BandPlan(((0, 6, 3), (6, 10, 7), (16, 4, 2)), None,
+                            disc_radii=(2.5, 6.5, 1.5))
+    radius, disc2 = uncertainty_pallas.tile_tables(plan, 20, 12)
+    # row tiles of 8: [0, 8) spans bands 0-1, [8, 16) band 1, [16, 20) band 2
+    np.testing.assert_array_equal(radius, [7, 7, 2])
+    np.testing.assert_allclose(disc2, [6.5**2, 6.5**2, 1.5**2])
+    radius, disc2 = uncertainty_pallas.tile_tables(None, 20, 12)
+    np.testing.assert_array_equal(radius, [12, 12, 12])
+    np.testing.assert_allclose(disc2, [288.0] * 3)
 
 
-@pytest.mark.slow
-def test_fused_band_kernel_bit_identical_to_per_band_calls():
-    """fuse_bands=True (one program per scenario, single max-radius pad)
-    vs the per-band pallas_call loop: bit-identical on both the
-    shared-prior and per-scenario-prior layouts."""
-    import jax
-
-    cp = dataclasses.replace(CostmapParams(), rows=40, cols=20, window_radius=12)
-    rng = np.random.default_rng(7)
-    sigma_hi = (0.16, 0.16, 0.017)
-    plan = uncertainty_pallas.make_band_plan(cp, 40, 20, (4.0, 0.0), sigma_hi)
-    yaw = jnp.asarray(0.4, jnp.float32)
-    geom = gridmap.make_geom([4.0, 0.0], cp.resolution, 40, 20, dtype=jnp.float32)
-
-    # shared prior + per-scenario sigmas (Monte-Carlo layout)
-    prior = jnp.asarray(rng.uniform(0, 100, (40, 20)), jnp.float32)
-    sigmas = jnp.asarray(
-        np.concatenate([rng.uniform(0.005, 0.16, (4, 2)),
-                        rng.uniform(0.005, 0.017, (4, 1))], axis=1),
-        jnp.float32,
-    )
-    a = uncertainty_pallas.propagate_uncertainty_tpu_banded(
-        cp, prior, geom, yaw, sigmas, plan, interpret=True, fuse_bands=True)
-    b = uncertainty_pallas.propagate_uncertainty_tpu_banded(
-        cp, prior, geom, yaw, sigmas, plan, interpret=True, fuse_bands=False)
-    np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-
-    # per-scenario priors + frames (full-stack layout)
-    B = 3
-    priors = jnp.asarray(rng.uniform(0, 100, (B, 40, 20)), jnp.float32)
-    centers = jnp.asarray([[3.9, 0.0], [4.1, 0.1], [4.0, -0.1]], jnp.float32)
-    geoms = jax.vmap(
-        lambda c: gridmap.make_geom(c, cp.resolution, 40, 20, dtype=jnp.float32)
-    )(centers)
-    yaws = jnp.asarray([0.1, 0.5, -0.3], jnp.float32)
-    plan_b = uncertainty_pallas.make_band_plan_bounds(
-        cp, 40, 20, (3.9, 4.1), (-0.1, 0.1), sigma_hi)
-    a = uncertainty_pallas.propagate_uncertainty_tpu_banded(
-        cp, priors, geoms, yaws, None, plan_b, interpret=True, fuse_bands=True)
-    b = uncertainty_pallas.propagate_uncertainty_tpu_banded(
-        cp, priors, geoms, yaws, None, plan_b, interpret=True, fuse_bands=False)
-    np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+def test_band_plan_validation():
+    plan = costmap.BandPlan(((0, 8, 3), (9, 8, 3)), None)
+    with pytest.raises(ValueError, match="not contiguous"):
+        costmap.check_band_plan(plan, 17)
+    with pytest.raises(ValueError, match="covers 16 rows"):
+        costmap.check_band_plan(costmap.BandPlan(((0, 16, 3),), None), 20)
 
 
 def test_band_plan_bounds_radii_cover_required():
     """Per-band radii dominate required_window_radius at the worst center
-    of the interval (sampled check)."""
+    of the interval (sampled check); default bands are 8 rows."""
     cp = dataclasses.replace(CostmapParams(), rows=64, cols=32)
     sigma_hi = (0.16, 0.16, 0.017)
     x_range, y_range = (-2.0, 18.0), (-4.0, 4.0)
-    plan = uncertainty_pallas.make_band_plan_bounds(
+    assert all(br == 8 for _, br, _ in costmap.make_band_plan_bounds(
+        cp, 64, 32, x_range, y_range, sigma_hi).bands)
+    plan = costmap.make_band_plan_bounds(
         cp, 64, 32, x_range, y_range, sigma_hi, max_bands=4
     )
     res = cp.resolution
-    rng = np.random.default_rng(0)
     for cx in np.linspace(*x_range, 7):
         for cy in np.linspace(*y_range, 5):
             first_x = cx + 0.5 * 64 * res - 0.5 * res
@@ -226,32 +108,29 @@ def test_band_plan_bounds_radii_cover_required():
                 assert R >= need, (cx, cy, r0, R, need)
 
 
-def test_aligned_row_loop_bit_identical():
-    """The aligned-group dynamic-row mode (the compiled path for windows
-    above the static-unroll ceiling — Mosaic cannot lower plain dynamic
-    sublane starts for batched refs) applies EXACTLY the same offsets with
-    the same arithmetic as the plain fori form: bit-identical, fused and
-    per-band, across sigmas/yaws."""
-    cp = dataclasses.replace(
-        CostmapParams(), rows=48, cols=40, resolution=0.3,
-        sigma_x=0.3, sigma_y=0.3, sigma_theta=0.05, window_radius=9)
-    rng = np.random.default_rng(3)
-    B = 3
-    prior = jnp.asarray(rng.uniform(0, 100, (B, cp.rows, cp.cols)), jnp.float32)
-    g1 = gridmap.make_geom((5.0, 1.0), cp.resolution, cp.rows, cp.cols,
-                           dtype=jnp.float32)
-    import jax
+def test_band_plan_bounds_exact_over_center_interval():
+    """Bounded band plan (per-scenario frames, the full-stack layout) equals
+    the full-window kernel for every center inside the plan's interval."""
+    cp = dataclasses.replace(CostmapParams(), rows=40, cols=20, window_radius=12,
+                             sigma_x=0.05, sigma_y=0.05, sigma_theta=0.03)
+    rng = np.random.default_rng(11)
+    B = 4
+    priors = jnp.asarray(rng.uniform(0, 100, (B, 40, 20)), jnp.float32)
+    x_range, y_range = (1.0, 5.0), (-1.0, 1.0)
+    centers = jnp.asarray(
+        np.stack([rng.uniform(*x_range, B), rng.uniform(*y_range, B)], -1),
+        jnp.float32,
+    )
+    geoms = jax.vmap(
+        lambda c: gridmap.make_geom(c, cp.resolution, 40, 20, dtype=jnp.float32)
+    )(centers)
+    yaws = jnp.asarray(rng.uniform(-3.0, 3.0, B), jnp.float32)
 
-    geom = jax.tree.map(lambda a: jnp.broadcast_to(a, (B,) + a.shape), g1)
-    yaws = jnp.asarray(rng.uniform(-1, 1, (B,)), jnp.float32)
-    sig = jnp.asarray(rng.uniform(0.05, 0.3, (B, 3)), jnp.float32)
-    plan = uncertainty_pallas.BandPlan(
-        ((0, 24, 9), (24, 24, 7)), None, disc_radii=(8.5, 6.9))
-
-    ref = uncertainty_pallas.propagate_uncertainty_tpu_banded(
-        cp, prior, geom, yaws, sig, plan, interpret=True, unroll_rows=False)
-    for fuse in (True, False):
-        aligned = uncertainty_pallas.propagate_uncertainty_tpu_banded(
-            cp, prior, geom, yaws, sig, plan, interpret=True,
-            unroll_rows="aligned", fuse_bands=fuse)
-        np.testing.assert_array_equal(np.asarray(aligned), np.asarray(ref))
+    plan = costmap.make_band_plan_bounds(
+        cp, 40, 20, x_range, y_range, (cp.sigma_x, cp.sigma_y, cp.sigma_theta))
+    assert min(r for _, _, r in plan.bands) < max(r for _, _, r in plan.bands)
+    banded = uncertainty_pallas.propagate_batched(
+        cp, priors, geoms, yaws, None, plan, interpret=True)
+    full = uncertainty_pallas.propagate_batched(
+        cp, priors, geoms, yaws, None, None, interpret=True)
+    np.testing.assert_array_equal(np.asarray(banded), np.asarray(full))
